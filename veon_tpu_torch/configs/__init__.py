@@ -1,0 +1,6 @@
+from . import presets
+from .base import (DataConfig, DepthConfig, GridConfig, HSAConfig,
+                   PropagationConfig, SANConfig, VeonConfig, ViTConfig)
+
+__all__ = ["presets", "DataConfig", "DepthConfig", "GridConfig", "HSAConfig",
+           "PropagationConfig", "SANConfig", "VeonConfig", "ViTConfig"]

@@ -1,0 +1,162 @@
+"""Dataclass configuration tree of the PyTorch port.
+
+A copy of the fields of `veon_tpu/configs/base.py` that the F=1 serving
+forward reads (the port imports nothing of `veon_tpu`). Training, ZoeDepth
+and text-tower fields come with the slices that port those parts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class GridConfig:
+    """Voxel grid + depth bins: each axis is (lower_bound, upper_bound, interval)."""
+
+    x: Tuple[float, float, float] = (-40.0, 40.0, 0.4)
+    y: Tuple[float, float, float] = (-40.0, 40.0, 0.4)
+    z: Tuple[float, float, float] = (-1.0, 5.4, 0.4)
+    depth: Tuple[float, float, float] = (1.0, 45.0, 0.5)
+
+    @property
+    def lower_bound(self) -> Tuple[float, float, float]:
+        return (self.x[0], self.y[0], self.z[0])
+
+    @property
+    def interval(self) -> Tuple[float, float, float]:
+        return (self.x[2], self.y[2], self.z[2])
+
+    @property
+    def size(self) -> Tuple[int, int, int]:
+        """(nx, ny, nz) voxel counts."""
+        return (
+            int(round((self.x[1] - self.x[0]) / self.x[2])),
+            int(round((self.y[1] - self.y[0]) / self.y[2])),
+            int(round((self.z[1] - self.z[0]) / self.z[2])),
+        )
+
+    @property
+    def num_depth_bins(self) -> int:
+        """D: number of frustum depth planes (88 for the default config)."""
+        return int(math.ceil((self.depth[1] - self.depth[0]) / self.depth[2]))
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """DINOv2 trunk size (patch 14, 37x37 pretrain grid, MLP ratio 4 for all)."""
+
+    width: int = 768
+    depth: int = 12
+    heads: int = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class SANConfig:
+    """SAN side adapter + CLIP recognition stack."""
+
+    clip_width: int = 768
+    clip_heads: int = 12
+    clip_layers: int = 12
+    clip_patch_size: int = 16
+    clip_embed_dim: int = 512
+    clip_pretrain_grid: Tuple[int, int] = (14, 14)
+    feature_last_layer_idx: int = 9
+    rec_downsample_method: str = "max"
+    rec_cross_attn: bool = True
+
+    side_width: int = 240
+    side_depth: int = 8
+    side_heads: int = 6
+    side_patch_size: int = 16
+    side_pretrain_grid: Tuple[int, int] = (40, 40)
+    num_queries: int = 100
+    # (side_block_idx, clip_layer_idx)
+    fusion_map: Tuple[Tuple[int, int], ...] = ((0, 0), (1, 3), (2, 6), (3, 9))
+
+    attn_bias_heads: int = 12
+    attn_bias_layers: int = 1
+    attn_bias_embed_channels: int = 256
+    attn_bias_mlp_channels: int = 256
+    attn_bias_mlp_num_layers: int = 3
+    rescale_attn_bias: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class HSAConfig:
+    """High-resolution side adaptor."""
+
+    dim: int = 384
+    clip_dim: int = 768
+    mlp_dim: int = 384
+    patch_shape: Tuple[int, int] = (8, 8)
+    num_heads: int = 12
+    # each entry: (block_idx, clip_cross_layer, clip_add_layer)
+    fusion_map: Tuple[Tuple[int, int, int], ...] = ((0, 3, 3), (1, 6, 6), (2, 9, 9))
+    manip_dim_head: int = 32
+    manip_attn_layers: int = 6
+    manip_supp_dim: int = 384
+
+
+@dataclasses.dataclass(frozen=True)
+class PropagationConfig:
+    """3D occupancy decoder."""
+
+    dim: int = 256
+    layer_depth: int = 5
+    clip_proj_dim: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthConfig:
+    """DepthAnythingV2 adaptor."""
+
+    encoder: str = "vitl"
+    features: int = 256
+    out_channels: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
+    max_depth: float = 80.0
+
+    @property
+    def vit(self) -> ViTConfig:
+        return {
+            "vits": ViTConfig(width=384, depth=12, heads=6),
+            "vitb": ViTConfig(width=768, depth=12, heads=12),
+            "vitl": ViTConfig(width=1024, depth=24, heads=16),
+        }[self.encoder]
+
+    @property
+    def intermediate_layer_idx(self) -> Tuple[int, ...]:
+        return {"vits": (2, 5, 8, 11), "vitb": (2, 5, 8, 11),
+                "vitl": (4, 11, 17, 23)}[self.encoder]
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    num_cams: int = 6
+    input_size: Tuple[int, int] = (512, 1408)
+    depth_input_size: Tuple[int, int] = (256, 704)
+    # DA-V2 lower-bound resize target (multiple of 14)
+    dav2_target: int = 252
+
+
+@dataclasses.dataclass(frozen=True)
+class VeonConfig:
+    grid: GridConfig = GridConfig()
+    data: DataConfig = DataConfig()
+    san: SANConfig = SANConfig()
+    hsa: HSAConfig = HSAConfig()
+    propagation: PropagationConfig = PropagationConfig()
+    depth: DepthConfig = DepthConfig()
+
+    lss_feat_ds: Tuple[int, int, int] = (2, 2, 2)  # (z, h, w)
+    lss_downsample: int = 16
+    num_temporal: int = 1  # F; the ported slice serves F=1
+    vocabulary: str = "nuscenes_brief"
+    compute_dtype: str = "float32"  # "bfloat16" for the serving path
+
+    @property
+    def feat_hw(self) -> Tuple[int, int]:
+        h, w = self.data.input_size
+        return (h // self.lss_downsample, w // self.lss_downsample)
