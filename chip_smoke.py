@@ -3,23 +3,33 @@
     python3 chip_smoke.py
 
 Phases; any failed check raises, so the exit code is non-zero:
-  1. build every CUDA kernel of the serving path from `veon_tpu_torch/csrc`
-     (one nvcc per source, started together);
+  1. build every CUDA kernel from `veon_tpu_torch/csrc` (one nvcc per
+     source, started together);
   2. hold each kernel against its plain PyTorch version on the card at the
      flagship shapes and time kernel, plain version and the PyTorch library
-     equivalent with CUDA events;
-  3. the serving path at a small size on the card against the same model on
-     the CPU (plain versions), same weights;
-  4. the main path: `veon_tpu_torch.entry` at full VEON-B width in bf16
-     with seeded random weights, serving 3 frames, with every kernel's
-     launch count read around exactly that run;
-  5. where a frame's time goes: per-tower device time and the profiler's
+     equivalent with CUDA events: #1 (pooled) on the serving rig; #2 (one
+     sorted stream) on the full frustum, on the K-band and as the pooled
+     op's backward recompute (with that backward as a whole); #3 (two
+     streams) on the K-band plus the far-depth spray; fp32 and bf16;
+  3. the stage-2 train step at a small size on the card against the same
+     model on the CPU (plain versions), same weights and batch;
+  4. training, a main path: `veon_tpu_torch.entry.train_entry` at full
+     VEON-B width in bf16 with seeded random weights, 3 steps with the
+     banded lift (kernel #3), then 1 step with lss_banded=False (kernel #2),
+     launch counts read around exactly those steps, and the in-grid rows
+     of the lift's streams on the step's own depth; then where a step's
+     time goes (a profiled step and three steps timed in stages);
+  5. the serving path at a small size on the card against the CPU;
+  6. serving, a main path: `veon_tpu_torch.entry` at full VEON-B width in
+     bf16, 3 frames, kernel #1's launches read around exactly that run;
+  7. where a frame's time goes: per-tower device time and the profiler's
      kernel time (two more frames, not counted above).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Without a card it exits non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -35,6 +45,12 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 OUT_DIR = "chiprun_out"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "bev_pool_pooled": ("veon_tpu_torch/csrc/bev_pool_pooled.cu", "veon_tpu/ops/bev_pool.py:223"),
+    "bev_pool_sorted": ("veon_tpu_torch/csrc/bev_pool_sorted.cu", "veon_tpu/ops/bev_pool.py:211"),
+    "bev_pool_sorted2": ("veon_tpu_torch/csrc/bev_pool_sorted.cu", "veon_tpu/ops/bev_pool.py:244"),
+}
 
 
 def log(*a):
@@ -61,6 +77,26 @@ def bf16_ulp(x):
     """One bf16 ulp at each value of x (fp32)."""
     e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
     return torch.exp2(e - 7)
+
+
+def check_kernel(got, plain, ref32, dt, what):
+    """fp32: 1e-5 (sums in another order). bf16: one bf16 ulp (at the larger
+    magnitude: the two sums may round to either side of a power of two) on
+    top of the fp32 tolerance, which cancelling sums near 0 need."""
+    if dt == torch.float32:
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5, msg=what)
+        return
+    ulp = bf16_ulp(torch.maximum(got.float().abs(), ref32.abs()))
+    over = (got.float() - ref32).abs() - (ulp + 1e-5 + 1e-5 * ref32.abs())
+    if over.max().item() > 0:
+        raise AssertionError(f"{what}: bf16 kernel off by more than one ulp: {over.max().item()}")
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): bytes over the HBM rate vs fp32 adds over the
+    non-tensor-core fp32 rate."""
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def kernel_phase(cfg):
@@ -102,16 +138,7 @@ def kernel_phase(cfg):
         ref32 = bp.bev_pool_pooled_plain(vals, rk, num_cells, pool_r, torch.float32)
         torch.cuda.synchronize()
         err = (got.float() - plain.float()).abs().max().item()
-        if dt == torch.float32:
-            torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
-        else:
-            # one bf16 ulp (at the larger magnitude: the two sums may round
-            # to either side of a power of two) on top of the fp32 check's
-            # sum-order tolerance, which cancelling sums near 0 need
-            ulp = bf16_ulp(torch.maximum(got.float().abs(), ref32.abs()))
-            over = (got.float() - ref32).abs() - (ulp + 1e-5 + 1e-5 * ref32.abs())
-            if over.max().item() > 0:
-                raise AssertionError(f"bf16 kernel off by more than one ulp: {over.max().item()}")
+        check_kernel(got, plain, ref32, dt, f"bev_pool_pooled {name}")
         ms = time_ms(lambda: bp.bev_pool_pooled(vals, rk, num_cells, pool_r, dt))
         plain_ms = time_ms(lambda: bp.bev_pool_pooled_plain(vals, rk, num_cells, pool_r, dt))
         acc = torch.zeros(num_cells + 1, C, dtype=torch.float32, device=dev)
@@ -124,16 +151,334 @@ def kernel_phase(cfg):
 
         library_ms = time_ms(library)
         nbytes = p_cap * C * vals.element_size() + 4 * p_cap + num_cells // pool_r * C * vals.element_size()
-        ops = n_valid * C
-        bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S) * 1e3
-        bound_by = "bytes" if nbytes / PEAK_BYTES_PER_S >= ops / PEAK_FP32_OPS_PER_S else "operations"
+        bound_ms, bound_by = bound(nbytes, n_valid * C)
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
         log(f"kernel bev_pool_pooled {name}: P_cap {p_cap} n_valid {n_valid} C {C}: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library(index_add_+amax) "
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB), "
             f"max|kernel-plain| {err:.3g}")
+    return results, (metas, pre, feat, metric, dist)
+
+
+def _time_case(name, call, plain_call, streams, num_cells, C, elt):
+    """Time a sorted-stream kernel, its plain version and the library call
+    (index_add_ of every stream into an fp32 grid); the byte bound counts
+    the in-grid rows read once with their int32 ranks, and the whole output
+    written once."""
+    dev = streams[0][0].device
+    acc = torch.zeros(num_cells + 1, C, dtype=torch.float32, device=dev)
+    idx = [rk.long().clamp(max=num_cells) for _v, rk in streams]
+    v32 = [v.float() for v, _rk in streams]
+
+    def library():
+        for i, v in zip(idx, v32):
+            acc.index_add_(0, i, v)
+
+    rows = [int((rk < num_cells).sum()) for _v, rk in streams]
+    nbytes = sum(rows) * (C * elt + 4) + num_cells * C * elt
+    bound_ms, bound_by = bound(nbytes, sum(rows) * C)
+    out = dict(ms=time_ms(call), plain_ms=time_ms(plain_call), library_ms=time_ms(library),
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, in_grid_rows=rows,
+               stream_rows=[int(rk.shape[0]) for _v, rk in streams])
+    del acc, idx, v32
+    log(f"kernel {name}: rows {out['stream_rows']} in-grid {rows} C {C}: kernel "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, library(index_add_) "
+        f"{out['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB)")
+    return out
+
+
+def lift_streams(cfg, metas, feat, metric, device):
+    """The flagship lift's point streams on `device`: the full frustum's
+    (two-hot weights and frustum ranks, pixel-major) and the banded lift's
+    (K-band main stream and far-depth spray)."""
+    from veon_tpu_torch.geometry.frustum import sensor2keyego_chain
+    from veon_tpu_torch.lift.lss import LSSLift, two_hot_depth
+
+    metas = {k: v.to(device) for k, v in metas.items()}
+    N = cfg.data.num_cams
+    s2k = sensor2keyego_chain(metas["sensor2egos"].reshape(1, -1, 4, 4),
+                              metas["ego2globals"].reshape(1, -1, 4, 4), 1, N)
+    args = (s2k[:, 0], metas["intrins"][:, 0], metas["post_rots"][:, 0],
+            metas["post_trans"][:, 0], metas["bda"])
+    lift = LSSLift.from_config(cfg)
+    metric = metric.to(device)
+    full_w = two_hot_depth(metric, cfg.grid).permute(0, 1, 3, 4, 2)
+    full_r = lift.precompute_ranks(*args).permute(0, 1, 3, 4, 2)
+    band_w, band_r, spray_w, spray_r = lift.banded_streams(metric, *args)
+    return {"full": [(full_w, full_r)], "band": [(band_w, band_r)],
+            "band_spray": [(band_w, band_r), (spray_w, spray_r)]}
+
+
+def sorted_kernel_phase(cfg, metas, feat, metric):
+    """Kernels #2 and #3 against their plain versions on the flagship lift's
+    streams (whose ranks must equal the CPU's, integer for integer): #2 on
+    the full frustum and on the K-band, #3 on the K-band plus the spray."""
+    from veon_tpu_torch.ops import bev_pool as bp
+
+    streams = lift_streams(cfg, metas, feat, metric, feat.device)
+    cpu = lift_streams(cfg, metas, feat, metric.cpu(), "cpu")
+    for case, pts in streams.items():
+        for (_w, r), (_wc, rc) in zip(pts, cpu[case]):
+            if not torch.equal(r.cpu(), rc):
+                raise AssertionError(f"{case} ranks differ between the card and the CPU in "
+                                     f"{int((r.cpu() != rc).sum())} points")
+    nx, ny, nz = cfg.grid.size
+    num_cells, C = nx * ny * nz, feat.shape[-1]
+    results = {}
+    for case, pts in streams.items():
+        kname = "bev_pool_sorted" if len(pts) == 1 else "bev_pool_sorted2"
+        kernel = getattr(bp, kname)
+        for dt, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            feat_flat = feat.to(dt).reshape(-1, C)
+            pairs = [(vals, rk) for rk, vals in
+                     (bp.sorted_stream(w.to(dt), feat_flat, r) for w, r in pts)]
+            flat = [t for pair in pairs for t in pair]
+            got = kernel(*flat, num_cells)
+            plain = bp.bev_pool_sorted_plain(pairs, num_cells, dt)
+            ref32 = bp.bev_pool_sorted_plain(pairs, num_cells, torch.float32)
+            torch.cuda.synchronize()
+            err = (got.float() - plain.float()).abs().max().item()
+            check_kernel(got, plain, ref32, dt, f"{kname} {case} {dname}")
+            res = _time_case(f"{kname} {case} {dname}", lambda: kernel(*flat, num_cells),
+                             lambda: bp.bev_pool_sorted_plain(pairs, num_cells, dt), pairs,
+                             num_cells, C, got.element_size())
+            results[f"{case}_{dname}"] = dict(res, kernel=kname, max_abs_err=err)
+            del got, plain, ref32, pairs, flat
     return results
+
+
+def pooled_backward_phase(cfg, pre, feat, dist):
+    """The pooled op's backward: its fine-grid recompute through kernel #2
+    against the plain version, and its gradients against a reference that
+    routes the cotangent through that same fine grid (amax, ties split
+    evenly) and applies the gather adjoints; every gradient entry."""
+    from veon_tpu_torch.ops import bev_pool as bp
+
+    nx, ny, nz = cfg.grid.size
+    num_cells, C, R = nx * ny * nz, feat.shape[-1], 8
+    G = num_cells // R
+    rk, order, ranks = pre["rk_pooled"], pre["order"], pre["ranks"]
+    gen = torch.Generator(device=feat.device).manual_seed(11)
+    results = {}
+    for dt, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        vals = bp.presorted_vals(dist.to(dt), feat.to(dt), order).contiguous()
+        got = bp.bev_pool_sorted(vals, rk, num_cells)
+        plain = bp.bev_pool_sorted_plain([(vals, rk)], num_cells, dt)
+        ref32 = bp.bev_pool_sorted_plain([(vals, rk)], num_cells, torch.float32)
+        torch.cuda.synchronize()
+        err = (got.float() - plain.float()).abs().max().item()
+        check_kernel(got, plain, ref32, dt, f"pooled backward recompute {dname}")
+        res = _time_case(f"bev_pool_sorted pooled-backward {dname}",
+                         lambda: bp.bev_pool_sorted(vals, rk, num_cells),
+                         lambda: bp.bev_pool_sorted_plain([(vals, rk)], num_cells, dt),
+                         [(vals, rk)], num_cells, C, got.element_size())
+        d = dist.to(dt).requires_grad_()
+        f = feat.to(dt).requires_grad_()
+        shape = (1, nz // 2, ny // 2, nx // 2, C)
+        cot = torch.randn(shape, generator=gen, device=feat.device).to(dt)
+
+        def op_grads():
+            out = bp.bev_pool_presorted_pooled(d, f, order, rk, ranks, cfg.grid.size, (2, 2, 2))
+            return torch.autograd.grad(out, (d, f), cot)
+
+        gd, gf = op_grads()
+        fine = got.reshape(G, R, C).requires_grad_()
+        (g_fine,) = torch.autograd.grad(fine.amax(1), fine, cot.reshape(G, C))
+        gd_p, gf_p = bp._gather_adjoint(g_fine.reshape(num_cells, C), d.detach().permute(0, 1, 3, 4, 2),
+                                        f.detach(), ranks.permute(0, 1, 3, 4, 2), num_cells,
+                                        True, True)
+        gd_p = gd_p.permute(0, 1, 4, 2, 3)
+        grad_err = []
+        for a, b, what in ((gd, gd_p, "d_depth"), (gf, gf_p, "d_feat")):
+            check_kernel(a, b, b.float(), dt, f"pooled backward {what} {dname}")
+            grad_err.append((a.float() - b.float()).abs().max().item())
+        results[dname] = dict(res, kernel="bev_pool_sorted", max_abs_err=err,
+                              op_fwd_bwd_ms=time_ms(op_grads, warmup=2, iters=10),
+                              grad_max_abs_err=grad_err)
+        log(f"pooled op forward+backward {dname}: {results[dname]['op_fwd_bwd_ms']:.4f} ms; "
+            f"max |op - reference| d_depth/d_feat {grad_err} over every entry")
+        del vals, got, plain, ref32, d, f, gd, gf, gd_p, gf_p, fine, g_fine
+    return results
+
+
+def far_depth(cfg, B=1):
+    """Metric depth U(1.5, 59.5) m at half input resolution, constant over
+    each 8x8 block (the lift's min-pool keeps it): a quarter of the pixels
+    lie past the ~45.8 m spray threshold."""
+    import numpy as np
+
+    h, w = cfg.feat_hw
+    d = np.random.default_rng(17).uniform(1.5, 59.5, (B, 1, cfg.data.num_cams, h, w))
+    return torch.from_numpy(np.repeat(np.repeat(d.astype(np.float32), 8, 3), 8, 4))
+
+
+def train_parity_phase():
+    """One stage-2 step at the tiny preset (0.5 m depth bins, so the banded
+    lift runs its spray) in fp32: card vs CPU, same weights and batch. The
+    rank streams are integer-equal; losses within 1e-4, every gradient (as
+    Adam's first moment) within 1e-3 of the step's largest."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import train_entry
+    from veon_tpu_torch.geometry.frustum import sensor2keyego_chain
+    from veon_tpu_torch.lift.lss import LSSLift, min_pool_depth
+    from veon_tpu_torch.train.step import AdamW, create_train_state
+
+    cfg = presets.veon_tiny_test()
+    cfg = dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid, depth=(1.0, 45.0, 0.5)))
+    # both models are built, and the card's given the CPU's weights, before either steps
+    built = {dev: train_entry(cfg, device=dev, seed=3) for dev in ("cpu", "cuda")}
+    gpu_model = built["cuda"][0].model
+    gpu_model.load_state_dict(built["cpu"][0].model.state_dict())
+    built["cuda"][0].state = create_train_state(gpu_model, AdamW())
+    runs = {}
+    for dev, (trainer, batch) in built.items():
+        del batch["depth_imgs"]
+        batch["depth"] = far_depth(cfg).to(dev)
+        m = batch["metas"]
+        s2k = sensor2keyego_chain(m["sensor2egos"].reshape(1, -1, 4, 4),
+                                  m["ego2globals"].reshape(1, -1, 4, 4), 1, cfg.data.num_cams)
+        streams = LSSLift.from_config(cfg).banded_streams(
+            min_pool_depth(batch["depth"][:, 0], 8), s2k[:, 0], m["intrins"][:, 0],
+            m["post_rots"][:, 0], m["post_trans"][:, 0], m["bda"])
+        runs[dev] = (trainer, trainer(batch), streams)
+    (cpu, lc, sc), (gpu, lg, sg) = runs["cpu"], runs["cuda"]
+    for i in (1, 3):
+        if not torch.equal(sc[i], sg[i].cpu()):
+            raise AssertionError("train-step rank streams differ between the card and the CPU")
+    for k in lc:
+        torch.testing.assert_close(lg[k].cpu(), lc[k], rtol=1e-4, atol=1e-4, msg=k)
+    mu_c, mu_g = cpu.state.opt_state.mu, gpu.state.opt_state.mu
+    scale = max(v.abs().max().item() for v in mu_c.values())
+    worst = max((mu_g[n].cpu() - v).abs().max().item() for n, v in mu_c.items()) / scale
+    if worst > 1e-3:
+        raise AssertionError(f"train-step gradients: card vs CPU off by {worst:.3g} of the largest")
+    in_grid = [int((sc[i] < sc[i].max()).sum()) for i in (1, 3)]
+    log(f"small train-step parity (tiny fp32, 0.5 m bins, card vs CPU): losses "
+        f"{ {k: round(float(v), 6) for k, v in lc.items()} }, max loss diff "
+        f"{max(abs(float(lg[k]) - float(lc[k])) for k in lc):.3g}, max grad diff {worst:.3g} of "
+        f"the largest, rank streams equal (in-grid main/spray {in_grid})")
+    return dict(losses={k: float(v) for k, v in lc.items()}, grad_rel_err=worst,
+                in_grid_rows=in_grid)
+
+
+def train_phase(cfg, steps=3):
+    """The stage-2 train step at full VEON-B width: `steps` steps with the
+    banded lift (kernel #3 once per step), then one step with
+    lss_banded=False (kernel #2 once); launch counts read around exactly
+    those steps. Then a profiled step (busy share, top kernels) and steps
+    timed in stages (depth tower, forward + loss, backward, optimizer + EMA)."""
+    from veon_tpu_torch.entry import train_entry
+    from veon_tpu_torch.ops import bev_pool as bp
+    from veon_tpu_torch.train import step as tstep
+
+    kernels = {k: getattr(bp, k) for k in KERNELS}
+    out = {}
+    for name, c, n in (("banded", cfg, steps), ("full", dataclasses.replace(cfg, lss_banded=False), 1)):
+        t0 = time.perf_counter()
+        trainer, batch = train_entry(c, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        times, losses = [], []
+        for _ in range(n):
+            t = time.perf_counter()
+            loss = trainer(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append({k: float(v) for k, v in loss.items()})
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        rows = lift_rows(trainer, batch, c)
+        want = {"bev_pool_sorted2": n if name == "banded" else 0,
+                "bev_pool_sorted": 0 if name == "banded" else n, "bev_pool_pooled": 0}
+        if launches != want:
+            raise AssertionError(f"train ({name}) launches {launches}, expected {want}")
+        if not all(math.isfinite(v) for d in losses for v in d.values()):
+            raise AssertionError(f"train ({name}) losses not finite: {losses}")
+        log(f"train {name} veon_b bf16: setup {setup_s:.1f} s, step ms {[round(t, 3) for t in times]}, "
+            f"peak memory {peak / 2**30:.3f} GiB, launches {launches}, lift streams {rows}, "
+            f"losses {losses[-1]}")
+        out[name] = dict(step_ms=times, peak_bytes=peak, launches=launches, losses=losses,
+                         setup_s=setup_s, lift_streams=rows)
+        if name == "banded":
+            out["breakdown"] = train_breakdown(trainer, batch, c, tstep)
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def lift_rows(trainer, batch, cfg):
+    """The rows and in-grid rows of each stream the step's lift pools, from
+    the depth the step itself uses (the frozen tower on depth_imgs): the
+    K-band main stream and the far-depth spray (banded lift), or the full
+    frustum."""
+    from veon_tpu_torch.geometry.frustum import sensor2keyego_chain
+    from veon_tpu_torch.lift.lss import min_pool_depth
+
+    model, m = trainer.model, batch["metas"]
+    nx, ny, nz = cfg.grid.size
+    with torch.no_grad():
+        d_ds = min_pool_depth(model.estimate_depth(batch["depth_imgs"])[:, 0], 8)
+    s2k = sensor2keyego_chain(m["sensor2egos"].reshape(1, -1, 4, 4),
+                              m["ego2globals"].reshape(1, -1, 4, 4), 1, cfg.data.num_cams)
+    args = (s2k[:, 0], m["intrins"][:, 0], m["post_rots"][:, 0], m["post_trans"][:, 0], m["bda"])
+    if cfg.lss_banded:
+        _w, r1, _w2, r2 = model.lift.banded_streams(d_ds, *args)
+        ranks = {"main": r1} if r2 is None else {"main": r1, "spray": r2}
+    else:
+        ranks = {"full": model.lift.precompute_ranks(*args)}
+    return {k: dict(rows=int(r.numel()), in_grid=int((r < nx * ny * nz).sum()))
+            for k, r in ranks.items()}
+
+
+def profiled(fn, top_n):
+    """One call of fn under torch.profiler: (device kernel ms, host ms of
+    that same call, busy share = their ratio, the top_n kernels). The
+    profiler's host overhead lengthens the call, so the share is low if
+    anything."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+    dev_time = lambda e: e.self_device_time_total / 1e3  # noqa: E731
+    # device-side events only: an aten op's row repeats its kernels' time
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(dev_time(e) for e in events)
+    top = [(e.key[:70], round(dev_time(e), 3), e.count)
+           for e in sorted(events, key=dev_time, reverse=True)[:top_n]]
+    busy = device_ms / host_ms if device_ms > 0 else None
+    log(f"profiler: device kernel time {device_ms:.3f} ms, busy share "
+        f"{'not measured' if busy is None else f'{busy:.3f}'} of the profiled call's "
+        f"{host_ms:.3f} ms; top kernels {top}")
+    return dict(device_kernel_ms=device_ms, profiled_host_ms=host_ms, busy_share=busy,
+                top_kernels=top)
+
+
+def train_breakdown(trainer, batch, cfg, tstep, steps=3):
+    """One profiled step, then `steps` steps timed in stages with CUDA
+    events that the step itself records as each stage ends
+    (`make_train_step`'s `mark`); per stage the median and every value."""
+    prof = profiled(lambda: trainer(batch), 15)
+    marks = []
+    trainer.step = tstep.make_train_step(trainer.model, tstep.AdamW(), cfg, trainer.membership,
+                                         mark=lambda stage: marks.append((stage, _event())))
+    runs = []
+    for _ in range(steps):
+        marks.clear()
+        marks.append(("start", _event()))
+        trainer(batch)
+        torch.cuda.synchronize()
+        runs.append({k: marks[i][1].elapsed_time(ev) for i, (k, ev) in enumerate(marks[1:])})
+    stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    log(f"train stage ms (device timeline, median of {steps} steps): "
+        + ", ".join(f"{k} {v:.3f} {[round(r[k], 3) for r in runs]}" for k, v in stages.items()))
+    return dict(prof, stage_ms=stages, stage_ms_each=runs)
 
 
 def small_parity_phase():
@@ -204,14 +549,11 @@ def main_path(cfg, frames=3):
 STAGES = ("depth", "clip_visual", "side_adapter", "rec_head", "hsa", "lift_fusion", "alignnet")
 
 
-def breakdown(server, imgs, depth_imgs, frame_ms):
+def breakdown(server, imgs, depth_imgs):
     """Where a frame's time goes, from two more frames after the counted run:
     CUDA events around each tower's forward (device timeline; the rest of
     the graph, including the deep-CLIP rerun, the lift and the heads' tail,
-    is "other"), and torch.profiler's device time by kernel, whose sum over
-    the frame time is the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    is "other"), and one profiled frame (device time by kernel, busy share)."""
     marks, hooks = {}, []
     for name in STAGES:
         mod = getattr(server.model, name)
@@ -229,22 +571,10 @@ def breakdown(server, imgs, depth_imgs, frame_ms):
     stages = {k: sum(ev[i].elapsed_time(ev[i + 1]) for i in range(0, len(ev), 2))
               for k, ev in marks.items()}
     stages["other"] = total - sum(stages.values())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server(imgs, depth_imgs)
-        torch.cuda.synchronize()
-    dev_time = lambda e: e.self_device_time_total / 1e3  # noqa: E731
-    # device-side events only: an aten op's row repeats its kernels' time
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(dev_time(e) for e in events)
-    top = [(e.key[:70], round(dev_time(e), 3), e.count)
-           for e in sorted(events, key=dev_time, reverse=True)[:12]]
-    busy = device_ms / frame_ms if device_ms > 0 else None
     log(f"stage ms (device timeline, frame {total:.3f} ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    log(f"profiler: device kernel time {device_ms:.3f} ms per frame, busy share "
-        f"{'not measured' if busy is None else f'{busy:.3f}'} of {frame_ms:.3f} ms; top kernels {top}")
-    return dict(stage_ms=stages, frame_events_ms=total, device_kernel_ms=device_ms,
-                busy_share=busy, top_kernels=top)
+    return dict(profiled(lambda: server(imgs, depth_imgs), 12), stage_ms=stages,
+                frame_events_ms=total)
 
 
 def _event():
@@ -266,40 +596,49 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    builds = native.build("bev_pool_pooled")
+    builds = native.build(*sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()}))
     log(f"build: {time.perf_counter() - t0:.1f} s wall, "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in builds.items()))
     for k, v in builds.items():
         log(v["log"].strip()[-1500:])
 
     cfg = presets.veon_b(compute_dtype="bfloat16")
-    kern = kernel_phase(cfg)
+    kern, (metas, pre, feat, metric, dist) = kernel_phase(cfg)
+    sorted_res = sorted_kernel_phase(cfg, metas, feat, metric)
+    backward = pooled_backward_phase(cfg, pre, feat, dist)
+    del metas, pre, feat, metric, dist
+    torch.cuda.empty_cache()
+    train_small = train_parity_phase()
+    train = train_phase(cfg)
     small = small_parity_phase()
     server, inputs, main_res = main_path(cfg)
-    where = breakdown(server, *inputs, main_res["median_ms"])
+    where = breakdown(server, *inputs)
 
-    b = kern["bf16"]
+    rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]),
+            "bev_pool_sorted": (sorted_res["full_bf16"],
+                                train["full"]["launches"]["bev_pool_sorted"]),
+            "bev_pool_sorted2": (sorted_res["band_spray_bf16"],
+                                 train["banded"]["launches"]["bev_pool_sorted2"])}
     table = {"kernels": [{
-        "name": "bev_pool_pooled", "route": "cuda",
-        "source": "veon_tpu_torch/csrc/bev_pool_pooled.cu",
-        "replaces": "veon_tpu/ops/bev_pool.py:223",
-        "launches": main_res["launches"]["bev_pool_pooled"],
-        "max_abs_err": b["max_abs_err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
-        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": b["library_ms"],
-    }]}
+        "name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"]} for name, (r, launches) in rows.items()]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"nvidia_smi": smi, "kind": kind, "kernel": kern, "small_parity_max_abs": small,
-                   "main_path": main_res, "breakdown": where,
-                   "builds": {k: v["seconds"] for k, v in builds.items()}}, f, indent=1)
-    if not all(math.isfinite(v) for v in (b["ms"], b["plain_ms"], b["bound_ms"])):
-        raise AssertionError("non-finite timing")
+        json.dump({"nvidia_smi": smi, "kind": kind, "kernel": kern, "sorted_kernels": sorted_res,
+                   "pooled_backward": backward, "train_small_parity": train_small,
+                   "train": train, "small_parity_max_abs": small, "main_path": main_res,
+                   "breakdown": where, "builds": {k: v["seconds"] for k, v in builds.items()}},
+                  f, indent=1)
+    for r, _ in rows.values():
+        if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "library_ms", "bound_ms")):
+            raise AssertionError("non-finite timing")
     log(smi)
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -55,3 +55,62 @@ def test_pool_kernel_rejects_what_it_does_not_take(card):
         bp.bev_pool_pooled(vals, rk.long(), 64, 8, torch.float32)
     with pytest.raises(ValueError):
         bp.bev_pool_pooled(vals, rk.cpu(), 64, 8, torch.float32)
+
+
+# kernels #2 (one stream) and #3 (two streams): C=256 is the flagship's
+# 16-byte vector path, C=12 bf16 the scalar instance
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("C", [256, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_kernels_match_plain(card, streams, C, dtype):
+    num_cells = 5000
+    pairs = [_stream(card, n, C, num_cells, dtype, seed=s)
+             for n, s in ((6000, 1), (9000, 2))[:streams]]
+    kernel = bp.bev_pool_sorted if streams == 1 else bp.bev_pool_sorted2
+    before = kernel.launches
+    got = kernel(*[t for pair in pairs for t in pair], num_cells)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want32 = bp.bev_pool_sorted_plain(pairs, num_cells, torch.float32)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want32, rtol=1e-5, atol=1e-5)
+    else:  # fp32 sums in another order, then one bf16 rounding
+        torch.testing.assert_close(got.float(), want32, rtol=2 ** -7, atol=1e-5)
+
+
+def test_sorted_kernel_rejects_what_it_does_not_take(card):
+    vals, rk = _stream(card, 100, 16, 64, torch.float32)
+    with pytest.raises(TypeError):
+        bp.bev_pool_sorted2(vals, rk, vals.to(torch.bfloat16), rk, 64)
+    with pytest.raises(ValueError):
+        bp.bev_pool_sorted(vals, rk.long(), 64)
+    with pytest.raises(ValueError):
+        bp.bev_pool_sorted(vals.t().contiguous().t(), rk, 64)
+
+
+def test_pooled_op_backward_on_card_matches_cpu(card):
+    """bev_pool_presorted_pooled forward (kernel #1) and backward (kernel
+    #2 recompute + group-max routing + gather adjoints) on the card vs the
+    plain versions on the CPU, fp32, random ranks with empty fine cells."""
+    rng = np.random.default_rng(5)
+    grid_size, B, N, D, h, w, C = (8, 6, 4), 1, 2, 5, 3, 4, 16
+    num_cells = B * 8 * 6 * 4
+    ranks = rng.integers(0, num_cells + num_cells // 4, (B, N, D, h, w)).astype(np.int32)
+    ranks = np.minimum(ranks, num_cells)
+    ranks = bp.pooled_rank_remap(torch.from_numpy(ranks), grid_size, (2, 2, 2), num_cells)
+    rk = ranks.permute(0, 1, 3, 4, 2).reshape(-1)
+    order = torch.argsort(rk, stable=True).to(torch.int32)
+    rk_sorted = rk[order.long()].contiguous()
+    depth = torch.from_numpy(rng.random((B, N, D, h, w)).astype(np.float32))
+    feat = torch.from_numpy(rng.standard_normal((B, N, h, w, C)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((B, 2, 3, 4, C)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", card):
+        d = depth.to(dev, copy=True).requires_grad_()
+        f = feat.to(dev, copy=True).requires_grad_()
+        out = bp.bev_pool_presorted_pooled(d, f, order.to(dev), rk_sorted.to(dev), ranks.to(dev),
+                                           grid_size, (2, 2, 2))
+        out.backward(cot.to(dev))
+        res[str(dev)] = (out.detach().cpu(), d.grad.cpu(), f.grad.cpu())
+    for got, want in zip(res[str(card)], res["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -13,7 +13,10 @@ as nested dicts of numpy arrays and inverts the layout rules of
   nn.scan stacks (leading layer axis) -> ModuleList index
 The port names its modules as the flax tree does, with one numeric path
 component where a scan stack is unstacked. Every JAX leaf must be
-consumed and every port entry filled; a leftover on either side raises.
+consumed; with strict=True every port entry must be filled too, while
+strict=False converts a partial tree (a grads or optimizer-moment tree of
+the trainable params, or the batch_stats alone) into the entries it
+covers. A leftover JAX leaf always raises.
 """
 
 from __future__ import annotations
@@ -62,8 +65,10 @@ def _to_torch_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
     return a
 
 
-def state_dict_from_jax(model: nn.Module, variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for `model` built from JAX `variables`."""
+def state_dict_from_jax(model: nn.Module, variables: Mapping, strict: bool = True
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for `model` (or the part of it that a partial
+    tree covers, strict=False) built from JAX `variables`."""
     leaves = {(col,) + path: a for col in variables
               for path, a in _flatten(variables[col]).items()}
     used: Dict[Tuple[str, ...], set] = {}
@@ -85,8 +90,8 @@ def state_dict_from_jax(model: nn.Module, variables: Mapping) -> Dict[str, torch
             raise ValueError(f"{name}: JAX {'/'.join(key)} has shape {a.shape}, "
                              f"port expects {tuple(ref.shape)}")
         used.setdefault(key, set()).add(tuple(index))
-        sd[name] = torch.from_numpy(np.ascontiguousarray(a)).to(ref.dtype)
-    if missing:
+        sd[name] = torch.from_numpy(np.array(a, copy=True)).to(ref.dtype)
+    if missing and strict:
         raise ValueError(f"port entries with no JAX leaf: {missing}")
     leftover = []
     for key, a in leaves.items():

@@ -1,8 +1,9 @@
 """Dataclass configuration tree of the PyTorch port.
 
 A copy of the fields of `veon_tpu/configs/base.py` that the F=1 serving
-forward reads (the port imports nothing of `veon_tpu`). Training, ZoeDepth
-and text-tower fields come with the slices that port those parts.
+forward and the stage-2 train step read (the port imports nothing of
+`veon_tpu`). ZoeDepth, text-tower and data-loader fields come with the
+slices that port those parts.
 """
 
 from __future__ import annotations
@@ -142,6 +143,23 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Stage-2 occupancy loss weights."""
+
+    out_channel: int = 18
+    empty_idx: int = 17
+    ignore_idx: int = 255
+    high_conf_thr: float = 0.99
+    stage2_start: int = 2
+    ov_class_number: int = 17
+    priority: Tuple[int, ...] = (2, 2, 3, 2, 2, 3, 3, 2, 3, 2, 2, 1, 1, 1, 1, 1, 1)
+    loss_voxel_ce_weight: float = 1.5
+    loss_featalign_det_weight: float = 35.0
+    loss_featalign_soft_weight: float = 25.0
+    bin_class_weights: Tuple[float, float] = (1.0, 0.5)
+
+
+@dataclasses.dataclass(frozen=True)
 class VeonConfig:
     grid: GridConfig = GridConfig()
     data: DataConfig = DataConfig()
@@ -149,10 +167,14 @@ class VeonConfig:
     hsa: HSAConfig = HSAConfig()
     propagation: PropagationConfig = PropagationConfig()
     depth: DepthConfig = DepthConfig()
+    loss: LossConfig = LossConfig()
 
     lss_feat_ds: Tuple[int, int, int] = (2, 2, 2)  # (z, h, w)
     lss_downsample: int = 16
-    num_temporal: int = 1  # F; the ported slice serves F=1
+    # lift without a presorted rig (training): the K-banded two-hot with
+    # the far-depth spray (True) or the reference full-frustum lift (False)
+    lss_banded: bool = True
+    num_temporal: int = 1  # F; the port runs F=1
     vocabulary: str = "nuscenes_brief"
     compute_dtype: str = "float32"  # "bfloat16" for the serving path
 

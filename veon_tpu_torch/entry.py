@@ -1,22 +1,34 @@
-"""Serving entry of the port: the VEON-B F=1 forward from camera images to
-the class grid (counterpart of `__graft_entry__.entry`).
+"""Entry points of the port, on the card unless device="cpu".
 
-    forward, (imgs, depth_imgs) = entry()      # veon_b, bf16, on the card
+Serving, the VEON-B F=1 forward from camera images to the class grid
+(counterpart of `__graft_entry__.entry`):
+
+    forward, (imgs, depth_imgs) = entry()      # veon_b, bf16
     grid = forward(imgs, depth_imgs)           # (1, 200, 200, 16) int32
 
 The rig is fixed, so its rank sort is precomputed once here
 (`LSSLift.precompute_sorted`) and each frame runs no sort.
+
+Training, the stage-2 step (counterpart of `make_train_step(mesh=None)` on
+the synthetic batch of `veon_tpu/utils/train_bench.py` build_train_setup):
+
+    trainer, batch = train_entry()             # veon_b, bf16
+    losses = trainer(batch)                    # one step: dict of scalars
+
+The batch carries depth_imgs, so the frozen depth tower runs in the step
+(the flagship's no-depth-cache recipe); the lift is the banded one unless
+cfg.lss_banded is False.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from . import resolve_device
-from .cli.shapes import example_batch_full
+from .cli.shapes import example_batch, example_batch_full, example_depth_imgs
 from .ckpt.from_jax import load_from_jax
 from .configs import presets
 from .configs.base import VeonConfig
@@ -24,6 +36,7 @@ from .geometry.frustum import sensor2keyego_chain
 from .model.veon import VeonModel, fusion_rule
 from .nn import text as text_mod
 from .nn.layers import init_random_
+from .train.step import AdamW, TrainState, create_train_state, make_train_step
 
 
 class FrameServer:
@@ -34,6 +47,7 @@ class FrameServer:
         self.model, self.metas = model, metas
         self.ov_weight, self.membership = ov_weight, membership
 
+    @torch.no_grad()
     def outputs(self, imgs, depth_imgs):
         """The model's raw fp32 outputs (bin_occ, feat_occ, sem_occ_raw, ...)."""
         return self.model.full_forward(imgs, depth_imgs, self.metas, self.ov_weight)
@@ -45,25 +59,29 @@ class FrameServer:
         return fusion_rule(merged, out["bin_occ"])
 
 
-def entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
-          variables: Optional[Mapping] = None):
-    """(forward, (imgs, depth_imgs)) for `cfg` (default: veon_b in bf16).
-
-    Weights come from `variables` (a JAX variables tree as numpy arrays)
-    when given, else from a seeded random initialisation; `ov_weight` is
-    the numpy-seeded open-vocabulary matrix of the JAX entry."""
-    dev = resolve_device(device)
-    if cfg is None:
-        cfg = presets.veon_b(compute_dtype="bfloat16")
+def _build_model(cfg, dev, seed, variables) -> VeonModel:
+    """The model on `dev` with weights from `variables` (a JAX variables
+    tree as numpy arrays) when given, else from a seeded random init."""
     if dev.type == "cuda":
         # fp32 stays fp32 where a config asks for it: no TF32 in convs or matmuls
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = VeonModel(cfg, device=dev).eval()
+    model = VeonModel(cfg, device=dev)
     if variables is not None:
         load_from_jax(model, variables)
     else:
         init_random_(model, torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
+          variables: Optional[Mapping] = None):
+    """(forward, (imgs, depth_imgs)) for `cfg` (default: veon_b in bf16);
+    `ov_weight` is the numpy-seeded open-vocabulary matrix of the JAX entry."""
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = presets.veon_b(compute_dtype="bfloat16")
+    model = _build_model(cfg, dev, seed, variables)
     imgs, depth_imgs, metas = example_batch_full(cfg, device=dev)
     prompts, refl = text_mod.build_vocabulary(cfg.vocabulary)
     rng = np.random.default_rng(1)
@@ -78,3 +96,49 @@ def entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
         metas["post_trans"][:, 0], metas["bda"])
     server = FrameServer(model, metas, ovw, text_mod.merge_matrix(refl))
     return server, (imgs, depth_imgs)
+
+
+class Trainer:
+    """A model in training with its optimizer state; calling it takes one
+    stage-2 step on a batch and returns the losses."""
+
+    def __init__(self, model: VeonModel, state: TrainState, step, membership):
+        self.model, self.state, self.step, self.membership = model, state, step, membership
+
+    def __call__(self, batch) -> Dict[str, torch.Tensor]:
+        self.state, losses = self.step(self.state, batch)
+        return losses
+
+
+def train_batch(cfg: VeonConfig, device="cuda") -> Dict:
+    """The synthetic stage-2 batch: the example rig and images, depth_imgs
+    for the frozen depth tower, the seeded open-vocabulary matrix and
+    random voxel labels (both from default_rng(7)), every voxel visible,
+    epoch 0."""
+    imgs, _depth, metas = example_batch(cfg, device=device)
+    prompts, _refl = text_mod.build_vocabulary(cfg.vocabulary)
+    rng = np.random.default_rng(7)
+    ovw = rng.standard_normal((len(prompts) + 1, cfg.san.clip_embed_dim)).astype(np.float32)
+    nx, ny, nz = cfg.grid.size
+    labels = rng.integers(0, 18, size=(1, nx, ny, nz)).astype(np.int32)
+    return {"imgs": imgs, "depth_imgs": example_depth_imgs(cfg, device=device), "metas": metas,
+            "voxel_semantics": torch.from_numpy(labels).to(device),
+            "mask_camera": torch.ones(1, nx, ny, nz, dtype=torch.int32, device=device),
+            "ov_weight": torch.from_numpy(ovw).to(device), "epoch": 0}
+
+
+def train_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
+                variables: Optional[Mapping] = None):
+    """(trainer, batch) for `cfg` (default: veon_b in bf16): the stage-2
+    trainable set (hsa, lift_fusion, alignnet), AdamW with warmup and the
+    EMA from 10,560 updates, as `veon_tpu/train/step.py`."""
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = presets.veon_b(compute_dtype="bfloat16")
+    model = _build_model(cfg, dev, seed, variables)
+    _prompts, refl = text_mod.build_vocabulary(cfg.vocabulary)
+    membership = text_mod.merge_matrix(refl)
+    tx = AdamW()
+    state = create_train_state(model, tx)
+    return (Trainer(model, state, make_train_step(model, tx, cfg, membership), membership),
+            train_batch(cfg, device=dev))

@@ -41,8 +41,9 @@ def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, -1)
 
 
-def _inv3(m: torch.Tensor) -> torch.Tensor:
-    """fp32 inverse of (..., 3, 3) computed on the host (once per rig)."""
+def _inv(m: torch.Tensor) -> torch.Tensor:
+    """fp32 inverse of (..., n, n) computed on the host (LU, as the JAX
+    reference's jnp.linalg.inv on the CPU)."""
     return torch.linalg.inv(m.detach().cpu().float()).to(m.device)
 
 
@@ -61,12 +62,35 @@ def frustum_to_ego(frustum, sensor2ego, cam2img, post_rot, post_tran, bda) -> to
     undo the image augmentation, unproject, camera -> ego, then BDA."""
     f32 = torch.float32
     pts = frustum[None, None].to(f32) - post_tran[:, :, None, None, None, :].to(f32)
-    pts = _matvec(_expand(_inv3(post_rot), 3), pts)
+    pts = _matvec(_expand(_inv(post_rot), 3), pts)
     pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], -1)
-    combine = _matmul3(sensor2ego[:, :, :3, :3].to(f32), _inv3(cam2img))
+    combine = _matmul3(sensor2ego[:, :, :3, :3].to(f32), _inv(cam2img))
     pts = _matvec(_expand(combine, 3), pts)
     pts = pts + sensor2ego[:, :, None, None, None, :3, 3].to(f32)
     return _matvec(bda.to(f32).reshape(bda.shape[0], 1, 1, 1, 1, 3, 3), pts)
+
+
+def pixel_ray_geometry(input_size, downsample: int, sensor2ego, cam2img, post_rot,
+                       post_tran, bda):
+    """Per-pixel rays: the ego xyz of the frustum point of pixel (u, v) at
+    metric depth d is d * dirs[..., v, u, :] + origin[..., None, None, :].
+    Returns dirs (B, N, Hf, Wf, 3) and origin (B, N, 3), fp32."""
+    f32 = torch.float32
+    h_in, w_in = input_size
+    hf, wf = h_in // downsample, w_in // downsample
+    uv = np.empty((hf, wf, 2), np.float32)
+    uv[..., 0] = np.linspace(0, w_in - 1, wf, dtype=np.float32)[None, :]
+    uv[..., 1] = np.linspace(0, h_in - 1, hf, dtype=np.float32)[:, None]
+    p2 = torch.from_numpy(uv).to(sensor2ego.device)[None, None] - post_tran[:, :, None, None, :2].to(f32)
+    inv2 = _expand(_inv(post_rot[:, :, :2, :2]), 2)
+    ab = torch.stack([inv2[..., i, 0] * p2[..., 0] + inv2[..., i, 1] * p2[..., 1]
+                      for i in range(2)], -1)
+    vec = torch.cat([ab, torch.ones_like(ab[..., :1])], -1)
+    rot = sensor2ego[:, :, :3, :3].to(f32)
+    combine = _matmul3(_matmul3(bda.to(f32)[:, None], rot), _inv(cam2img))
+    dirs = _matvec(_expand(combine, 2), vec)
+    origin = _matvec(bda.to(f32)[:, None], sensor2ego[:, :, :3, 3].to(f32))
+    return dirs, origin
 
 
 def voxel_ranks(coor_ego: torch.Tensor, grid: GridConfig):

@@ -1,4 +1,4 @@
-"""The VEON serving graph, F=1 with the fixed-rig presorted lift
+"""The VEON graph, F=1, for serving and for the stage-2 train step
 (counterpart of `veon_tpu/model/veon.py` `VeonModel.full_forward`,
 `__call__`, `_forward_current`, `_early_vox`, `semantic_inference_2d` and
 `fusion_rule`).
@@ -6,10 +6,21 @@
 Layout as on the JAX side: frame-major (B, F, N, ...) batches, channel-last
 images and voxels, voxel outputs (B, Z, Y, X, C). Params are fp32; the
 towers compute in `cfg.compute_dtype`; outputs are fp32.
+
+The lift: a fixed rig's presorted streams when `metas` carry "lift_sorted"
+(serving), else `cfg.lss_banded` picks the banded lift from metric depth
+(the training default) or the reference full-frustum lift.
+
+train=True mirrors the reference's stage-2 no-grad boundary: the depth
+tower, the CLIP trunk features and the side adapter / rec-head outputs are
+computed without gradient; the deep-CLIP rerun inside the lift path
+(`rec_head.update_remaining`) is NOT, so HSA's gradient flows through the
+frozen rec head's blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -17,6 +28,7 @@ from torch import nn
 
 from .. import resolve_device, torch_dtype
 from ..configs.base import VeonConfig
+from ..geometry.frustum import sensor2keyego_chain
 from ..lift.lss import LSSLift, min_pool_depth, two_hot_depth
 from ..nn.alignnet import AlignNet3D, LiftFusion
 from ..nn.dpt import DepthAnythingV2
@@ -69,34 +81,43 @@ class VeonModel(nn.Module):
             d = resize_bilinear(d[..., None], (h2, w2), align_corners=True)[..., 0]
         return d.reshape((B, F, N) + d.shape[1:])
 
-    @torch.no_grad()
-    def full_forward(self, imgs, depth_imgs, metas, ov_weight) -> Dict[str, torch.Tensor]:
-        """Depth estimation + semantic forward."""
-        return self(imgs, self.estimate_depth(depth_imgs), metas, ov_weight)
+    def full_forward(self, imgs, depth_imgs, metas, ov_weight, train: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+        """Depth estimation (always without gradient) + semantic forward."""
+        with torch.no_grad():
+            depth = self.estimate_depth(depth_imgs)
+        return self(imgs, depth, metas, ov_weight, train=train)
 
-    def forward(self, imgs, depth, metas, ov_weight) -> Dict[str, torch.Tensor]:
+    def forward(self, imgs, depth, metas, ov_weight, train: bool = False
+                ) -> Dict[str, torch.Tensor]:
         """imgs (B, F, N, H, W, 3); depth (B, F, N, H/2, W/2) metric; metas
-        with "lift_sorted" from `LSSLift.precompute_sorted`; ov_weight
-        (P+1, C_embed). Returns sem_seg_ds / sem_embed_ds (B,N,h,w,C),
-        clip_feat, bin_occ (B,Z,Y,X,2), feat_occ, sem_occ_raw (B,Z,Y,X,P+1)."""
+        with the rig (sensor2egos, ego2globals, intrins, post_rots,
+        post_trans, bda) and optionally "lift_sorted" from
+        `LSSLift.precompute_sorted`; ov_weight (P+1, C_embed). Returns
+        sem_seg_ds / sem_embed_ds (B,N,h,w,C), clip_feat, bin_occ
+        (B,Z,Y,X,2), feat_occ, sem_occ_raw (B,Z,Y,X,P+1)."""
         B, F, N = imgs.shape[:3]
         if F != 1:
-            raise NotImplementedError("F>1 temporal serving comes with the temporal/banded-lift slice")
-        if "lift_sorted" not in metas:
-            raise NotImplementedError("only the fixed-rig presorted lift is ported; the "
-                                      "in-graph and banded lifts come with the training slice")
+            raise NotImplementedError("F>1 temporal frames are not ported yet")
         flat = imgs.reshape((-1,) + imgs.shape[3:])
         clip_input = resize_bilinear(flat, (flat.shape[1] // 2, flat.shape[2] // 2))
-        feats = self.clip_visual(clip_input)
-        return self._forward_current(flat, feats, depth[:, 0], ov_weight, B, N,
-                                     metas["lift_sorted"])
+        with _frozen(train):
+            feats = self.clip_visual(clip_input)
+        s2k = sensor2keyego_chain(metas["sensor2egos"].reshape(B, F * N, 4, 4),
+                                  metas["ego2globals"].reshape(B, F * N, 4, 4), F, N)
+        lift_args = (s2k[:, 0], metas["intrins"][:, 0], metas["post_rots"][:, 0],
+                     metas["post_trans"][:, 0], metas["bda"])
+        return self._forward_current(flat, feats, depth[:, 0], ov_weight, B, N, lift_args,
+                                     metas.get("lift_sorted"), train)
 
-    def _forward_current(self, flat0, feats, depth0, ov_weight, B, N, presorted):
+    def _forward_current(self, flat0, feats, depth0, ov_weight, B, N, lift_args, presorted,
+                         train: bool = False):
         c = self.cfg
-        mask_preds, attn_bias, _ = self.side_adapter(flat0, feats)
-        mask_embs = self.rec_head(feats, attn_bias, normalize=True)
-        vox, feats_0 = self._early_vox(flat0, feats, depth0, presorted)
-        occ = self.alignnet(vox)
+        with _frozen(train):
+            mask_preds, attn_bias, _ = self.side_adapter(flat0, feats)
+            mask_embs = self.rec_head(feats, attn_bias, normalize=True)
+        vox, feats_0 = self._early_vox(flat0, feats, depth0, lift_args, presorted)
+        occ = self.alignnet(vox, train=train)
         nx, ny, nz = c.grid.size
         feat_occ = resize_trilinear(occ["feat_occ"], (nz, ny, nx))
         bin_occ = resize_trilinear(occ["bin_occ"], (nz, ny, nx))
@@ -112,8 +133,8 @@ class VeonModel(nn.Module):
         }
         return {k: v.float() for k, v in out.items()}
 
-    def _early_vox(self, flat_imgs, feats, depth_f, presorted):
-        """HSA + deep-CLIP rerun + fuse + presorted LSS lift for one frame.
+    def _early_vox(self, flat_imgs, feats, depth_f, lift_args, presorted=None):
+        """HSA + deep-CLIP rerun + fuse + LSS lift for one frame.
         flat_imgs (B*N, H, W, 3); depth_f (B, N, H/2, W/2)."""
         c = self.cfg
         B, N = depth_f.shape[:2]
@@ -123,8 +144,14 @@ class VeonModel(nn.Module):
                    c.data.input_size[1] // c.lss_downsample)
         fused = self.lift_fusion(supp, feats[str(c.san.clip_layers)], lift_hw)
         fused = fused.reshape((B, N) + fused.shape[1:])
-        dist = two_hot_depth(min_pool_depth(depth_f, 8), c.grid)
-        return self.lift.lift_presorted(fused, dist, presorted), feats
+        d_ds = min_pool_depth(depth_f, 8)
+        if presorted is not None:
+            vox = self.lift.lift_presorted(fused, two_hot_depth(d_ds, c.grid), presorted)
+        elif c.lss_banded:
+            vox = self.lift.lift_from_metric(fused, d_ds, *lift_args)
+        else:
+            vox = self.lift(fused, two_hot_depth(d_ds, c.grid), *lift_args)
+        return vox, feats
 
     @staticmethod
     def semantic_inference_2d(mask_logits, mask_embs, mask_preds):
@@ -134,6 +161,11 @@ class VeonModel(nn.Module):
         m = torch.sigmoid(mask_preds)
         return (torch.einsum("bqp,bqhw->bhwp", cls, m),
                 torch.einsum("bqc,bqhw->bhwc", mask_embs, m))
+
+
+def _frozen(train: bool):
+    """The stage-2 no-grad boundary around the frozen towers' outputs."""
+    return torch.no_grad() if train else contextlib.nullcontext()
 
 
 def fusion_rule(sem_occ_merged, bin_occ, free_idx: int = 17):

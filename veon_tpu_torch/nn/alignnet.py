@@ -1,6 +1,7 @@
 """AlignNet3D refinement and heads plus the lift-input fusion
 (counterpart of `veon_tpu/nn/alignnet.py`), F=1: channel-last 3D
-(B, Z, Y, X, C), BatchNorm in eval mode from running stats."""
+(B, Z, Y, X, C). `train=True` runs BatchNorm on batch statistics and
+updates its running stats (flax semantics, `nn/layers.py` BatchNorm)."""
 
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ class ConvBN3D(nn.Module):
         self.conv = Conv3d(cin, cout, kernel, bias=bias, dtype=dtype)
         self.bn = BatchNorm(cout)
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
+    def forward(self, x, train: bool = False):
+        x = self.bn(self.conv(x), train)
         return F.relu(x) if self.relu else x
 
 
@@ -38,8 +39,8 @@ class ResBlock3D(nn.Module):
         self.conv1 = ConvBN3D(features, features, relu=True, dtype=dtype)
         self.conv2 = ConvBN3D(features, features, relu=False, dtype=dtype)
 
-    def forward(self, x):
-        return F.relu(self.conv2(self.conv1(x)) + x)
+    def forward(self, x, train: bool = False):
+        return F.relu(self.conv2(self.conv1(x, train), train) + x)
 
 
 class PredHead3DOcc(nn.Module):
@@ -50,8 +51,8 @@ class PredHead3DOcc(nn.Module):
         self.occ_conv1 = ConvBN3D(cin, cin // 4, kernel=1, dtype=dtype)
         self.occ_conv2 = Conv3d(cin // 4, out_channels, 1, bias=False, dtype=dtype)
 
-    def forward(self, x):
-        return self.occ_conv2(self.occ_conv1(x))
+    def forward(self, x, train: bool = False):
+        return self.occ_conv2(self.occ_conv1(x, train))
 
 
 class PredHead3DSem(nn.Module):
@@ -63,8 +64,9 @@ class PredHead3DSem(nn.Module):
         self.occ_conv2 = ConvBN3D(cin, cin, kernel=1, dtype=dtype)
         self.occ_conv3 = Conv3d(cin, out_channels, 1, bias=False, dtype=dtype)
 
-    def forward(self, x):
-        return torch.sigmoid(self.occ_conv3(self.occ_conv2(self.occ_conv1(x)))) - 0.5
+    def forward(self, x, train: bool = False):
+        x = self.occ_conv2(self.occ_conv1(x, train), train)
+        return torch.sigmoid(self.occ_conv3(x)) - 0.5
 
 
 class AlignNet3D(nn.Module):
@@ -76,14 +78,13 @@ class AlignNet3D(nn.Module):
         self.occupancy_pred = PredHead3DOcc(cfg.dim, 2, dtype)
         self.feat_pred = PredHead3DSem(cfg.dim, clip_outdim, dtype)
 
-    def forward(self, x, occ_feat_prevs: Optional[List[torch.Tensor]] = None
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, x, occ_feat_prevs: Optional[List[torch.Tensor]] = None,
+                train: bool = False) -> Dict[str, torch.Tensor]:
         if occ_feat_prevs:
-            raise NotImplementedError(
-                "temporal fusion (F>1) comes with the temporal/banded-lift slice")
+            raise NotImplementedError("temporal fusion (F>1) is not ported yet")
         for body in self.res3d:
-            x = body["block"](x)
-        return {"bin_occ": self.occupancy_pred(x), "feat_occ": self.feat_pred(x)}
+            x = body["block"](x, train)
+        return {"bin_occ": self.occupancy_pred(x, train), "feat_occ": self.feat_pred(x, train)}
 
 
 class LiftFusion(nn.Module):

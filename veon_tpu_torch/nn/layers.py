@@ -113,8 +113,15 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis from running stats, in fp32
-    (flax nn.BatchNorm(use_running_average=True), epsilon 1e-5)."""
+    """BatchNorm over the last axis in fp32 with flax nn.BatchNorm's
+    semantics (momentum 0.9, epsilon 1e-5). train=False normalises with the
+    running stats; train=True with the batch's BIASED variance, computed as
+    E[x^2] - E[x]^2 (flax's fast variance, clipped at 0), and moves the
+    running stats toward the batch stats, in place:
+    stat = 0.9 * stat + 0.1 * batch_stat (the biased variance, unlike
+    torch.nn.BatchNorm's unbiased running variance)."""
+
+    momentum = 0.9
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -124,9 +131,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        y = (x.float() - self.running_mean) * scale + self.bias
+    def forward(self, x, train: bool = False):
+        xf = x.float()
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean) * scale + self.bias
         return y.to(x.dtype)
 
 

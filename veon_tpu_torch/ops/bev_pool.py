@@ -1,25 +1,41 @@
-"""Presorted voxel pool with the fused output max-pool (counterpart of
-`veon_tpu/ops/bev_pool.py` `pooled_rank_remap` and
-`bev_pool_pallas_presorted_pooled`).
+"""Voxel pools over sorted point streams (counterpart of
+`veon_tpu/ops/bev_pool.py`).
 
-The per-frame lift is: gather + weight the rig's presorted point stream
-(`presorted_vals`, torch ops), then the hand-written CUDA kernel
-`csrc/bev_pool_pooled.cu` sums each fine cell and max-pools each group of
-pool_r fine cells in one pass (`bev_pool_pooled`). On a CPU tensor the
-wrapper runs the kernel's plain PyTorch version; on a CUDA tensor it
-launches the kernel or raises. Forward only: the backward comes with the
-training slice.
+Every pool here is: sort the lift's points by voxel rank, gather and weight
+their feature rows (torch ops), then sum the rows of each cell in one pass
+of a hand-written CUDA kernel:
+  * `bev_pool_pooled` (`csrc/bev_pool_pooled.cu`, TPU kernel
+    `_bev_pool_block_kernel_pooled`): one presorted coarse-major stream,
+    fine-cell sums max-pooled per group of pool_r cells (serving);
+  * `bev_pool_sorted` (`csrc/bev_pool_sorted.cu`, TPU kernel
+    `_bev_pool_block_kernel`): one stream, per-cell sums (the full-frustum
+    and K-banded lifts, and the pooled op's backward);
+  * `bev_pool_sorted2` (same source, TPU kernel `_bev_pool_block_kernel2`):
+    two streams summed into one grid (the banded lift with its far-depth
+    spray, the training default).
+On a CPU tensor a wrapper runs its kernel's plain PyTorch version; on a CUDA
+tensor it launches the kernel or raises. Each wrapper counts its launches
+in `<wrapper>.launches`.
+
+The differentiable ops (`bev_pool`, `bev_pool_banded`, `bev_pool_banded2`,
+`bev_pool_presorted_pooled`) are `torch.autograd.Function`s whose backwards
+are the JAX package's gather adjoints, in torch ops.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import native
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# A capped stream (`valid_cap`) keeps its sorted prefix rounded up to this
+# many rows (the JAX kernel's DMA chunk), as the JAX ops do.
+PREFIX_ROUND = 256
 
 
 def pooled_rank_remap(ranks, grid_size, ds, num_cells):
@@ -49,6 +65,27 @@ def presorted_vals(depth, feat, order):
     return feat.reshape(-1, C)[order // D] * wts[order][:, None]
 
 
+def _check_stream(name, vals, rk, device, dtype):
+    if vals.device != device or rk.device != device:
+        raise ValueError(f"{name}: vals on {vals.device}, ranks on {rk.device}, expected {device}")
+    if vals.dtype != dtype or dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} takes float32/bfloat16 vals of one dtype, got {vals.dtype}")
+    if vals.dim() != 2 or rk.shape != vals.shape[:1] or rk.dtype != torch.int32:
+        raise ValueError(f"{name}: bad shapes: vals {tuple(vals.shape)}, ranks "
+                         f"{tuple(rk.shape)} {rk.dtype}")
+    if not (vals.is_contiguous() and rk.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous vals and ranks")
+    if vals.data_ptr() % 16:
+        raise ValueError(f"{name} needs 16-byte aligned rows")
+
+
+def _cell_starts(rk_sorted, num_cells: int, step: int = 1):
+    """CSR row offsets: the first row of every cell (every `step`-th cell)
+    and the end of the last, by binary search of the sorted ranks."""
+    bounds = torch.arange(0, num_cells + 1, step, dtype=torch.int32, device=rk_sorted.device)
+    return torch.searchsorted(rk_sorted, bounds, out_int32=True)
+
+
 def bev_pool_pooled_plain(vals, rk_sorted, num_cells: int, pool_r: int, out_dtype):
     """Plain PyTorch version of the kernel: fp32 index_add_ into
     (num_cells + 1, C) with overflow rows in the last row, max over each
@@ -60,31 +97,24 @@ def bev_pool_pooled_plain(vals, rk_sorted, num_cells: int, pool_r: int, out_dtyp
 
 def bev_pool_pooled(vals, rk_sorted, num_cells: int, pool_r: int, out_dtype):
     """(P_cap, C) rows sorted by coarse-major rank -> (num_cells // pool_r, C)
-    pooled grid. Counts its kernel launches in `bev_pool_pooled.launches`."""
+    pooled grid. Counts its kernel launches in `bev_pool_pooled.launches`.
+    Forward only: `bev_pool_presorted_pooled` differentiates it."""
     if vals.requires_grad:
         raise NotImplementedError("bev_pool_pooled is forward-only")
     if vals.device.type == "cpu":
         return bev_pool_pooled_plain(vals, rk_sorted, num_cells, pool_r, out_dtype)
-    if vals.device.type != "cuda" or rk_sorted.device != vals.device:
-        raise ValueError(f"bev_pool_pooled: vals on {vals.device}, ranks on {rk_sorted.device}")
-    if vals.dtype not in _DTYPE_CODE or out_dtype != vals.dtype:
+    if vals.device.type != "cuda":
+        raise ValueError(f"bev_pool_pooled: vals on {vals.device}")
+    if out_dtype != vals.dtype:
         raise TypeError(f"bev_pool_pooled takes float32/bfloat16 vals and out of the "
                         f"same dtype, got {vals.dtype} -> {out_dtype}")
-    if vals.dim() != 2 or rk_sorted.shape != vals.shape[:1] or rk_sorted.dtype != torch.int32:
-        raise ValueError(f"bad shapes: vals {tuple(vals.shape)}, ranks "
-                         f"{tuple(rk_sorted.shape)} {rk_sorted.dtype}")
+    _check_stream("bev_pool_pooled", vals, rk_sorted, vals.device, out_dtype)
     if num_cells % pool_r:
         raise ValueError(f"num_cells {num_cells} is not a multiple of pool_r {pool_r}")
-    if not (vals.is_contiguous() and rk_sorted.is_contiguous()):
-        raise ValueError("bev_pool_pooled needs contiguous vals and ranks")
     n_coarse = num_cells // pool_r
     out = torch.empty(n_coarse, vals.shape[1], dtype=out_dtype, device=vals.device)
-    if vals.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("bev_pool_pooled needs 16-byte aligned rows")
-    bounds = torch.arange(n_coarse + 1, dtype=torch.int32, device=vals.device) * pool_r
-    starts = torch.searchsorted(rk_sorted, bounds, out_int32=True)
-    lib = native.load("bev_pool_pooled")
-    fn = lib.veon_bev_pool_pooled
+    starts = _cell_starts(rk_sorted, num_cells, pool_r)
+    fn = native.load("bev_pool_pooled").veon_bev_pool_pooled
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(vals.data_ptr(), rk_sorted.data_ptr(), starts.data_ptr(), out.data_ptr(),
@@ -99,13 +129,213 @@ def bev_pool_pooled(vals, rk_sorted, num_cells: int, pool_r: int, out_dtype):
 bev_pool_pooled.launches = 0
 
 
-def bev_pool_presorted_pooled(depth, feat, order, rk_pooled, grid_size, ds):
-    """Accelerate-mode lift with the [dz,dy,dx] max-pool fused into the pool:
-    depth (B, N, D, h, w) weights, feat (B, N, h, w, C), `order`/`rk_pooled`
-    from `LSSLift.precompute_sorted` -> (B, nz/dz, ny/dy, nx/dx, C)."""
-    B, C = depth.shape[0], feat.shape[-1]
+def bev_pool_sorted_plain(streams: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                          num_cells: int, out_dtype):
+    """Plain PyTorch version of both sorted-stream kernels: fp32 index_add_
+    of every (vals, rk) stream into (num_cells + 1, C), overflow rows in
+    the last row, then one cast."""
+    vals0 = streams[0][0]
+    acc = torch.zeros(num_cells + 1, vals0.shape[1], dtype=torch.float32, device=vals0.device)
+    for vals, rk in streams:
+        acc.index_add_(0, rk.long().clamp(max=num_cells), vals.float())
+    return acc[:num_cells].to(out_dtype)
+
+
+def _launch_sorted(name, streams, num_cells: int):
+    """Validate the streams, build their CSR offsets and launch the one-
+    or two-stream entry of csrc/bev_pool_sorted.cu; returns (num_cells, C)."""
+    vals1 = streams[0][0]
+    dev, dtype, C = vals1.device, vals1.dtype, vals1.shape[1]
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: vals on {dev}")
+    for vals, rk in streams:
+        _check_stream(name, vals, rk, dev, dtype)
+        if vals.shape[1] != C:
+            raise ValueError(f"{name}: streams of {C} and {vals.shape[1]} channels")
+    out = torch.empty(num_cells, C, dtype=dtype, device=dev)
+    starts = [_cell_starts(rk, num_cells) for _vals, rk in streams]
+    ptrs = [p for (vals, _rk), s in zip(streams, starts) for p in (vals.data_ptr(), s.data_ptr())]
+    lib = native.load("bev_pool_sorted")
+    fn = lib.veon_bev_pool_sorted if len(streams) == 1 else lib.veon_bev_pool_sorted2
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 1) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*ptrs, out.data_ptr(), num_cells, C, _DTYPE_CODE[dtype],
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def bev_pool_sorted(vals, rk_sorted, num_cells: int):
+    """One sorted (P, C) stream -> (num_cells, C) per-cell sums in vals'
+    dtype (kernel #2). Counts launches in `bev_pool_sorted.launches`."""
+    if vals.device.type == "cpu":
+        return bev_pool_sorted_plain([(vals, rk_sorted)], num_cells, vals.dtype)
+    out = _launch_sorted("bev_pool_sorted", [(vals, rk_sorted)], num_cells)
+    bev_pool_sorted.launches += 1
+    return out
+
+
+bev_pool_sorted.launches = 0
+
+
+def bev_pool_sorted2(vals1, rk1, vals2, rk2, num_cells: int):
+    """Two sorted streams -> one (num_cells, C) grid of per-cell sums, stream
+    1 rows before stream 2 rows (kernel #3). Counts launches in
+    `bev_pool_sorted2.launches`."""
+    if vals1.device.type == "cpu":
+        return bev_pool_sorted_plain([(vals1, rk1), (vals2, rk2)], num_cells, vals1.dtype)
+    out = _launch_sorted("bev_pool_sorted2", [(vals1, rk1), (vals2, rk2)], num_cells)
+    bev_pool_sorted2.launches += 1
+    return out
+
+
+bev_pool_sorted2.launches = 0
+
+
+def sorted_stream(weights, feat_flat, ranks, valid_cap: Optional[float] = None):
+    """A pixel-major point set as one sorted stream: weights / ranks
+    (B, N, h, w, K), feat_flat (B*N*h*w, C) -> (int32 ranks (P,), rows
+    feat[pix] * w (P, C)), stable-sorted by rank (as jnp.argsort). A
+    `valid_cap` keeps only the sorted prefix of cap * P rows (rounded up to
+    PREFIX_ROUND), which is lossless only while the in-grid count fits."""
+    K = weights.shape[-1]
+    rk = ranks.reshape(-1)
+    order = torch.argsort(rk, stable=True)
+    if valid_cap is not None:
+        P = rk.shape[0]
+        p_cap = -(-int(P * valid_cap) // PREFIX_ROUND) * PREFIX_ROUND
+        order = order[:min(p_cap, -(-P // PREFIX_ROUND) * PREFIX_ROUND)]
+    vals = feat_flat[order // K] * weights.reshape(-1)[order][:, None]
+    return rk[order].to(torch.int32).contiguous(), vals.contiguous()
+
+
+def _gather_adjoint(g, weights, feat, ranks, num_cells: int, need_w: bool, need_f: bool):
+    """Backward of a pixel-major pool: the cotangent of every point is its
+    cell's row of g (0 for overflow), so d_weights[.., k] = <feat, g_at[k]>
+    and d_feat = sum_k weights[k] g_at[k]. weights / ranks (B, N, h, w, K)."""
+    C = feat.shape[-1]
+    gpad = torch.cat([g.reshape(num_cells, C), g.new_zeros(1, C)])
+    g_at = gpad[ranks.long().clamp(max=num_cells)]  # (B, N, h, w, K, C)
+    dw = torch.einsum("bnhwc,bnhwkc->bnhwk", feat, g_at) if need_w else None
+    df = torch.einsum("bnhwk,bnhwkc->bnhwc", weights, g_at) if need_f else None
+    return dw, df
+
+
+def _num_cells(feat, grid_size):
     nx, ny, nz = grid_size
-    dz, dy, dx = ds
-    vals = presorted_vals(depth, feat, order)
-    out = bev_pool_pooled(vals, rk_pooled, B * nz * ny * nx, dz * dy * dx, feat.dtype)
-    return out.reshape(B, nz // dz, ny // dy, nx // dx, C)
+    return feat.shape[0] * nz * ny * nx
+
+
+class _BandedPool(torch.autograd.Function):
+    """bev_pool_pallas_banded: one pixel-major stream through kernel #2."""
+
+    @staticmethod
+    def forward(ctx, weights, feat, ranks, grid_size, valid_cap):
+        B, C = feat.shape[0], feat.shape[-1]
+        nx, ny, nz = grid_size
+        num_cells = _num_cells(feat, grid_size)
+        rk, vals = sorted_stream(weights, feat.reshape(-1, C), ranks, valid_cap)
+        out = bev_pool_sorted(vals, rk, num_cells)
+        ctx.save_for_backward(weights, feat, ranks)
+        ctx.num_cells = num_cells
+        return out.reshape(B, nz, ny, nx, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        weights, feat, ranks = ctx.saved_tensors
+        # the exact adjoint of the uncapped forward (as the JAX backward)
+        dw, df = _gather_adjoint(g, weights, feat, ranks, ctx.num_cells,
+                                 ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        return dw, df, None, None, None
+
+
+class _Banded2Pool(torch.autograd.Function):
+    """bev_pool_pallas_banded2: two pixel-major streams through kernel #3."""
+
+    @staticmethod
+    def forward(ctx, weights, feat, ranks, weights2, ranks2, grid_size, valid_cap2):
+        B, C = feat.shape[0], feat.shape[-1]
+        nx, ny, nz = grid_size
+        num_cells = _num_cells(feat, grid_size)
+        feat_flat = feat.reshape(-1, C)
+        rk1, vals1 = sorted_stream(weights, feat_flat, ranks)
+        rk2, vals2 = sorted_stream(weights2, feat_flat, ranks2, valid_cap2)
+        out = bev_pool_sorted2(vals1, rk1, vals2, rk2, num_cells)
+        ctx.save_for_backward(weights, feat, ranks, weights2, ranks2)
+        ctx.num_cells = num_cells
+        return out.reshape(B, nz, ny, nx, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        weights, feat, ranks, weights2, ranks2 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dw1, df1 = _gather_adjoint(g, weights, feat, ranks, ctx.num_cells, need[0], need[1])
+        dw2, df2 = _gather_adjoint(g, weights2, feat, ranks2, ctx.num_cells, need[3], need[1])
+        return dw1, (df1 + df2 if need[1] else None), None, dw2, None, None, None
+
+
+def bev_pool_banded(weights, feat, ranks, grid_size, valid_cap: Optional[float] = None):
+    """K-banded pool: weights / ranks (B, N, h, w, K), feat (B, N, h, w, C)
+    -> (B, nz, ny, nx, C); overflow rank = B*nz*ny*nx."""
+    return _BandedPool.apply(weights, feat, ranks, tuple(grid_size), valid_cap)
+
+
+def bev_pool_banded2(weights, feat, ranks, weights2, ranks2, grid_size,
+                     valid_cap2: Optional[float] = None):
+    """Two pixel-major streams (the K-banded main stream, uncapped, and e.g.
+    the far-depth spray over all D bins) into ONE grid: weights / ranks
+    (B, N, h, w, K), weights2 / ranks2 (B, N, h, w, K2), shared feat."""
+    return _Banded2Pool.apply(weights, feat, ranks, weights2, ranks2, tuple(grid_size),
+                              valid_cap2)
+
+
+def bev_pool(depth, feat, ranks, grid_size, valid_cap: Optional[float] = None):
+    """Full-frustum pool (in-graph form of `bev_pool_pallas`): depth
+    (B, N, D, h, w) weights, feat (B, N, h, w, C), ranks (B, N, D, h, w)
+    -> (B, nz, ny, nx, C). valid_cap None keeps every point (lossless)."""
+    return bev_pool_banded(depth.permute(0, 1, 3, 4, 2), feat, ranks.permute(0, 1, 3, 4, 2),
+                           grid_size, valid_cap)
+
+
+class _PresortedPooled(torch.autograd.Function):
+    """bev_pool_pallas_presorted_pooled: kernel #1 forward; the backward
+    recomputes the fine grid with kernel #2, routes the cotangent through
+    the group max (ties split evenly, as jnp.max's VJP) and applies the
+    gather adjoints."""
+
+    @staticmethod
+    def forward(ctx, depth, feat, order, rk_pooled, ranks, grid_size, ds):
+        B, C = depth.shape[0], feat.shape[-1]
+        nx, ny, nz = grid_size
+        dz, dy, dx = ds
+        vals = presorted_vals(depth, feat, order).contiguous()
+        out = bev_pool_pooled(vals, rk_pooled, _num_cells(feat, grid_size), dz * dy * dx,
+                              feat.dtype)
+        ctx.save_for_backward(depth, feat, order, rk_pooled, ranks)
+        ctx.grid_size, ctx.pool_r = grid_size, dz * dy * dx
+        return out.reshape(B, nz // dz, ny // dy, nx // dx, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        depth, feat, order, rk_pooled, ranks = ctx.saved_tensors
+        C = feat.shape[-1]
+        num_cells = _num_cells(feat, ctx.grid_size)
+        vals = presorted_vals(depth, feat, order).contiguous()
+        fine = bev_pool_sorted(vals, rk_pooled, num_cells)  # coarse-major layout
+        with torch.enable_grad():
+            f = fine.reshape(num_cells // ctx.pool_r, ctx.pool_r, C).requires_grad_()
+            (g_fine,) = torch.autograd.grad(f.amax(1), f, g.reshape(-1, C))
+        need = ctx.needs_input_grad
+        dw, df = _gather_adjoint(g_fine, depth.permute(0, 1, 3, 4, 2), feat,
+                                 ranks.permute(0, 1, 3, 4, 2), num_cells, need[0], need[1])
+        return (None if dw is None else dw.permute(0, 1, 4, 2, 3)), df, None, None, None, None, None
+
+
+def bev_pool_presorted_pooled(depth, feat, order, rk_pooled, ranks, grid_size, ds):
+    """Accelerate-mode lift with the [dz,dy,dx] max-pool fused into the pool:
+    depth (B, N, D, h, w) weights, feat (B, N, h, w, C), `order` /
+    `rk_pooled` / `ranks` (coarse-major) from `LSSLift.precompute_sorted`
+    -> (B, nz/dz, ny/dy, nx/dx, C)."""
+    return _PresortedPooled.apply(depth, feat, order, rk_pooled, ranks, tuple(grid_size),
+                                  tuple(ds))
