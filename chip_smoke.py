@@ -10,7 +10,9 @@ Phases; any failed check raises, so the exit code is non-zero:
      equivalent with CUDA events: #1 (pooled) on the serving rig; #2 (one
      sorted stream) on the full frustum, on the K-band and as the pooled
      op's backward recompute (with that backward as a whole); #3 (two
-     streams) on the K-band plus the far-depth spray; fp32 and bf16;
+     streams) on the K-band plus the far-depth spray; #4 (fused
+     LayerNorm -> Dense) at the HSA qkv, HSA MLP and SAN qkv shapes; fp32
+     and bf16;
   3. the stage-2 train step at a small size on the card against the same
      model on the CPU (plain versions), same weights and batch;
   4. training, a main path: `veon_tpu_torch.entry.train_entry` at full
@@ -23,7 +25,15 @@ Phases; any failed check raises, so the exit code is non-zero:
   6. serving, a main path: `veon_tpu_torch.entry` at full VEON-B width in
      bf16, 3 frames, kernel #1's launches read around exactly that run;
   7. where a frame's time goes: per-tower device time and the profiler's
-     kernel time (two more frames, not counted above).
+     kernel time (two more frames, not counted above);
+  8. temporal serving at the tiny preset (T=2 and T=3, fp32) on the card
+     against the CPU, 3 calls of the synthetic drive each;
+  9. temporal serving, a main path: `veon_tpu_torch.entry.temporal_entry`
+     at full VEON-B width, T=2, bf16, 4 calls of the drive, launches read
+     around exactly those calls (kernel #1 once per call); then where a
+     steady call's time goes (per-tower, temporal fusion and warp device
+     time, one profiled call) and one batched F=2 forward on two frames
+     without the presorted lift (kernel #3 once per frame).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Without a card it exits non-zero and prints no result.
@@ -40,21 +50,40 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and the fp32 rate outside
-# the tensor cores, which the pool's adds run on
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, the fp32 rate outside the
+# tensor cores (the pools' adds, kernel #4's fp32 FMAs) and the dense bf16
+# tensor-core rate (kernel #4's bf16 product)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_BF16_TC_OPS_PER_S = 989e12
 OUT_DIR = "chiprun_out"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "bev_pool_pooled": ("veon_tpu_torch/csrc/bev_pool_pooled.cu", "veon_tpu/ops/bev_pool.py:223"),
     "bev_pool_sorted": ("veon_tpu_torch/csrc/bev_pool_sorted.cu", "veon_tpu/ops/bev_pool.py:211"),
     "bev_pool_sorted2": ("veon_tpu_torch/csrc/bev_pool_sorted.cu", "veon_tpu/ops/bev_pool.py:244"),
+    "ln_dense": ("veon_tpu_torch/csrc/ln_dense.cu", "veon_tpu/ops/fused_ln.py:36"),
 }
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def kernel_fns():
+    """{name: wrapper} of every kernel in KERNELS (each counts its launches)."""
+    from veon_tpu_torch.ops import bev_pool as bp
+    from veon_tpu_torch.ops import fused_ln
+
+    mods = {"ln_dense": fused_ln}
+    return {k: getattr(mods.get(k, bp), k) for k in KERNELS}
+
+
+def reset_launches():
+    fns = kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
 
 
 def time_ms(fn, warmup=3, iters=25):
@@ -92,10 +121,10 @@ def check_kernel(got, plain, ref32, dt, what):
         raise AssertionError(f"{what}: bf16 kernel off by more than one ulp: {over.max().item()}")
 
 
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): bytes over the HBM rate vs fp32 adds over the
-    non-tensor-core fp32 rate."""
-    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
+def bound(nbytes, ops, ops_per_s=PEAK_FP32_OPS_PER_S):
+    """(bound_ms, bound_by): bytes over the HBM rate vs operations over their
+    type's peak rate (default fp32 outside the tensor cores)."""
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
@@ -369,10 +398,8 @@ def train_phase(cfg, steps=3):
     those steps. Then a profiled step (busy share, top kernels) and steps
     timed in stages (depth tower, forward + loss, backward, optimizer + EMA)."""
     from veon_tpu_torch.entry import train_entry
-    from veon_tpu_torch.ops import bev_pool as bp
     from veon_tpu_torch.train import step as tstep
 
-    kernels = {k: getattr(bp, k) for k in KERNELS}
     out = {}
     for name, c, n in (("banded", cfg, steps), ("full", dataclasses.replace(cfg, lss_banded=False), 1)):
         t0 = time.perf_counter()
@@ -380,8 +407,7 @@ def train_phase(cfg, steps=3):
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        for fn in kernels.values():
-            fn.launches = 0
+        kernels = reset_launches()
         times, losses = [], []
         for _ in range(n):
             t = time.perf_counter()
@@ -393,7 +419,8 @@ def train_phase(cfg, steps=3):
         peak = torch.cuda.max_memory_allocated()
         rows = lift_rows(trainer, batch, c)
         want = {"bev_pool_sorted2": n if name == "banded" else 0,
-                "bev_pool_sorted": 0 if name == "banded" else n, "bev_pool_pooled": 0}
+                "bev_pool_sorted": 0 if name == "banded" else n, "bev_pool_pooled": 0,
+                "ln_dense": 0}
         if launches != want:
             raise AssertionError(f"train ({name}) launches {launches}, expected {want}")
         if not all(math.isfinite(v) for d in losses for v in d.values()):
@@ -507,16 +534,13 @@ def small_parity_phase():
 
 def main_path(cfg, frames=3):
     from veon_tpu_torch.entry import entry
-    from veon_tpu_torch.ops import bev_pool as bp
 
     t0 = time.perf_counter()
     server, (imgs, depth_imgs) = entry(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    kernels = {"bev_pool_pooled": bp.bev_pool_pooled}
-    for fn in kernels.values():
-        fn.launches = 0
+    kernels = reset_launches()
     times, grid = [], None
     for _ in range(frames):
         t = time.perf_counter()
@@ -530,9 +554,9 @@ def main_path(cfg, frames=3):
     lo, hi = int(grid.min()), int(grid.max())
     if lo < 0 or hi > 17:
         raise AssertionError(f"class ids outside [0, 17]: {lo}..{hi}")
-    for k, n in launches.items():
-        if n != frames:
-            raise AssertionError(f"{k} launched {n} times in {frames} frames")
+    want = {k: frames if k == "bev_pool_pooled" else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"serving launches {launches} in {frames} frames, expected {want}")
     out = server.outputs(imgs, depth_imgs)
     for k, v in out.items():
         if v.dtype != torch.float32 or not torch.isfinite(v).all():
@@ -549,18 +573,31 @@ def main_path(cfg, frames=3):
 STAGES = ("depth", "clip_visual", "side_adapter", "rec_head", "hsa", "lift_fusion", "alignnet")
 
 
+def hook_stages(mods, marks):
+    """A CUDA event before and after every forward of each module in
+    {name: module}, appended to marks[name]; returns the hook handles."""
+    hooks = []
+    for name, mod in mods.items():
+        hooks.append(mod.register_forward_pre_hook(
+            lambda m, a, name=name: marks.setdefault(name, []).append(_event())))
+        hooks.append(mod.register_forward_hook(
+            lambda m, a, o, name=name: marks[name].append(_event())))
+    return hooks
+
+
+def stage_ms(marks):
+    """{name: device ms summed over its (before, after) event pairs}."""
+    return {k: sum(ev[i].elapsed_time(ev[i + 1]) for i in range(0, len(ev), 2))
+            for k, ev in marks.items()}
+
+
 def breakdown(server, imgs, depth_imgs):
     """Where a frame's time goes, from two more frames after the counted run:
     CUDA events around each tower's forward (device timeline; the rest of
     the graph, including the deep-CLIP rerun, the lift and the heads' tail,
     is "other"), and one profiled frame (device time by kernel, busy share)."""
-    marks, hooks = {}, []
-    for name in STAGES:
-        mod = getattr(server.model, name)
-        hooks.append(mod.register_forward_pre_hook(
-            lambda m, a, name=name: marks.setdefault(name, []).append(_event())))
-        hooks.append(mod.register_forward_hook(
-            lambda m, a, o, name=name: marks[name].append(_event())))
+    marks = {}
+    hooks = hook_stages({name: getattr(server.model, name) for name in STAGES}, marks)
     start = _event()
     server(imgs, depth_imgs)
     end = _event()
@@ -568,13 +605,215 @@ def breakdown(server, imgs, depth_imgs):
     for h in hooks:
         h.remove()
     total = start.elapsed_time(end)
-    stages = {k: sum(ev[i].elapsed_time(ev[i + 1]) for i in range(0, len(ev), 2))
-              for k, ev in marks.items()}
+    stages = stage_ms(marks)
     stages["other"] = total - sum(stages.values())
     log(f"stage ms (device timeline, frame {total:.3f} ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     return dict(profiled(lambda: server(imgs, depth_imgs), 12), stage_ms=stages,
                 frame_events_ms=total)
+
+
+LN_DENSE_SHAPES = {"hsa_qkv": (67584, 384, 1152), "hsa_mlp": (67584, 384, 384),
+                   "san_qkv": (17536, 256, 768)}
+
+
+def ln_dense_phase():
+    """Kernel #4 against its plain version at the three production shapes
+    the JAX docstring names, bf16 and fp32, seeded inputs on the card:
+    bf16 within 2e-2, fp32 within 1e-5. Times: kernel, plain version and
+    the library pair (F.layer_norm then F.linear, two calls). Bound: x, W,
+    the vectors and out moved once over the HBM rate, against 2 M C N
+    product operations (+ ~8 M C for the normalisation) over the dense bf16
+    tensor-core rate (bf16) or the fp32 rate outside the tensor cores."""
+    import torch.nn.functional as F
+
+    from veon_tpu_torch.ops import fused_ln as fl
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    fl.ln_dense.launches = 0
+    results = {}
+    for shape, (M, C, N) in LN_DENSE_SHAPES.items():
+        for dt, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            x = (2.0 * torch.randn(M, C, generator=g, device=dev) + 0.5).to(dt)
+            s = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
+            sh = 0.1 * torch.randn(C, generator=g, device=dev)
+            w = (torch.randn(C, N, generator=g, device=dev) / math.sqrt(C)).to(dt)
+            b = 0.1 * torch.randn(N, generator=g, device=dev)
+            got = fl.ln_dense(x, s, sh, w, b)
+            plain = fl.ln_dense_plain(x, s, sh, w, b)
+            torch.cuda.synchronize()
+            err = (got.float() - plain.float()).abs().max().item()
+            tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+            torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol,
+                                       msg=f"ln_dense {shape} {dname}")
+            s_dt, sh_dt, b_dt, w_t = s.to(dt), sh.to(dt), b.to(dt), w.t()
+            ms = time_ms(lambda: fl.ln_dense(x, s, sh, w, b))
+            plain_ms = time_ms(lambda: fl.ln_dense_plain(x, s, sh, w, b))
+            library_ms = time_ms(lambda: F.linear(F.layer_norm(x, (C,), s_dt, sh_dt, 1e-5),
+                                                  w_t, b_dt))
+            elt = x.element_size()
+            nbytes = M * C * elt + C * N * elt + (2 * C + N) * 4 + M * N * elt
+            ops = 2 * M * C * N + 8 * M * C
+            bound_ms, bound_by = bound(nbytes, ops, PEAK_BF16_TC_OPS_PER_S
+                                       if dt == torch.bfloat16 else PEAK_FP32_OPS_PER_S)
+            results[f"{shape}_{dname}"] = dict(
+                M=M, C=C, N=N, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops)
+            log(f"kernel ln_dense {shape} {dname} {M}x{C} @ {C}x{N}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library(F.layer_norm + F.linear, two calls) "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.1f} GFLOP), max|kernel-plain| {err:.3g} (tol {tol})")
+            del x, w, got, plain
+    results["phase_launches"] = fl.ln_dense.launches
+    log(f"ln_dense launches in this phase (checks and timing): {fl.ln_dense.launches}")
+    torch.cuda.empty_cache()
+    return results
+
+
+def temporal_parity_phase(calls=3):
+    """Streaming temporal serving at the tiny preset in fp32, T=2 and T=3:
+    a session on the card and one on the CPU (plain versions), the card's
+    model given the CPU's weights before either runs, over `calls` calls of
+    the synthetic drive; every float output of every call within 1e-3, the
+    class grids equal in at least 99.9% of the voxels."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import temporal_entry
+
+    worst, agree = {}, {}
+    for T in (2, 3):
+        cfg = presets.veon_tiny_test(num_temporal=T)
+        built = {dev: temporal_entry(cfg, device=dev, seed=3, frames=calls)
+                 for dev in ("cpu", "cuda")}
+        built["cuda"][0].model.load_state_dict(built["cpu"][0].model.state_dict())
+        outs = {dev: [sess.infer(r["imgs"], r["depth_imgs"],
+                                 {"lidarego2global": r["lidarego2global"]}) for r in reqs]
+                for dev, (sess, reqs) in built.items()}
+        worst[T], agree[T] = 0.0, 1.0
+        for i, (want, got) in enumerate(zip(outs["cpu"], outs["cuda"])):
+            for k in want:
+                g, w = got[k].cpu(), want[k]
+                if k == "pred":  # a class id: equal off near-ties
+                    agree[T] = min(agree[T], (g == w).float().mean().item())
+                    continue
+                torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3, msg=f"T={T} call {i} {k}")
+                worst[T] = max(worst[T], (g - w).abs().max().item())
+        if agree[T] < 0.999:
+            raise AssertionError(f"T={T}: class grids agree in only {agree[T]:.4f} of the voxels")
+    log(f"small temporal parity (veon_tiny_test fp32, T=2 and T=3, {calls} calls of the drive, "
+        f"card vs CPU plain path): max abs diff {worst} over every float output, class grids "
+        f"equal in {agree} of the voxels")
+    return dict(max_abs_diff=worst, pred_agreement=agree)
+
+
+def temporal_main_path(calls=4):
+    """Streaming temporal serving at full VEON-B width: `temporal_entry()`
+    (T=2, bf16, seeded random weights), `calls` calls of the drive, every
+    launch count read around exactly those calls: kernel #1 once per call,
+    no other kernel."""
+    from veon_tpu_torch.entry import temporal_entry
+
+    t0 = time.perf_counter()
+    session, reqs = temporal_entry(device="cuda", seed=0, frames=calls)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_launches()
+    times, out = [], None
+    for r in reqs:
+        t = time.perf_counter()
+        out = session.infer(r["imgs"], r["depth_imgs"], {"lidarego2global": r["lidarego2global"]})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: calls if k == "bev_pool_pooled" else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"temporal launches {launches} in {calls} calls, expected {want}")
+    pred = out["pred"]
+    if tuple(pred.shape) != (1, 200, 200, 16) or pred.dtype != torch.uint8:
+        raise AssertionError(f"temporal pred {tuple(pred.shape)} {pred.dtype}")
+    if int(pred.max()) > 17:
+        raise AssertionError(f"class ids outside [0, 17]: max {int(pred.max())}")
+    for k, v in out.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f"temporal output {k} not finite")
+    classes = torch.bincount(pred.flatten().long(), minlength=18).tolist()
+    steady = statistics.median(times[1:])
+    log(f"temporal main path veon_b T=2 bf16: setup {setup_s:.1f} s, call ms "
+        f"{[round(t, 3) for t in times]} (call 1 cold), steady median {steady:.3f} ms/call, peak "
+        f"memory {peak / 2**30:.3f} GiB, launches {launches}, class histogram {classes}")
+    return session, reqs, dict(call_ms=times, steady_median_ms=steady, peak_bytes=peak,
+                               launches=launches, setup_s=setup_s, classes=classes)
+
+
+def temporal_breakdown(session, reqs):
+    """Where a steady streaming call's time goes, from one more call after
+    the counted run: CUDA events around each tower, the temporal fusion
+    and the ego-motion warp (the rest is "other"); then one profiled call."""
+    model = session.model
+    marks = {}
+    mods = {name: getattr(model, name) for name in STAGES}
+    hooks = hook_stages(dict(mods, temporal_fusion=model.alignnet.temporal_fusion), marks)
+    warp = model.align_to_prev
+
+    def timed_warp(*a, **kw):
+        marks.setdefault("warp", []).append(_event())
+        r = warp(*a, **kw)
+        marks["warp"].append(_event())
+        return r
+
+    model.align_to_prev = timed_warp  # instance attribute: shadows the method for this call
+    r = reqs[-1]
+    req = {"lidarego2global": r["lidarego2global"]}
+    start = _event()
+    session.infer(r["imgs"], r["depth_imgs"], req)
+    end = _event()
+    torch.cuda.synchronize()
+    del model.align_to_prev
+    for h in hooks:
+        h.remove()
+    total = start.elapsed_time(end)
+    stages = stage_ms(marks)
+    # the temporal fusion runs inside alignnet: report alignnet without it
+    stages["alignnet_without_temporal_fusion"] = stages.pop("alignnet") - stages["temporal_fusion"]
+    stages["other"] = total - sum(stages.values())
+    log(f"temporal stage ms (device timeline, steady call {total:.3f} ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    return dict(profiled(lambda: session.infer(r["imgs"], r["depth_imgs"], req), 12),
+                stage_ms=stages, call_events_ms=total)
+
+
+def batched_temporal_phase(session, reqs):
+    """One batched F=2 forward on the drive's first two frames without the
+    presorted lift: every frame lifts through the banded lift, kernel #3
+    once per frame, no other kernel. Its outputs against the streaming
+    session's second call on the same frames (bf16, the banded and
+    presorted lifts summing in other orders) are recorded, not gated."""
+    from veon_tpu_torch.cli.shapes import temporal_batch
+
+    imgs, depth_imgs, metas = temporal_batch(session.rig_metas, reqs[:2])
+    session.reset()
+    for r in reqs[:2]:
+        stream = session.infer(r["imgs"], r["depth_imgs"], {"lidarego2global": r["lidarego2global"]})
+    kernels = reset_launches()
+    t = time.perf_counter()
+    with torch.no_grad():
+        out = session.model.full_forward(imgs, depth_imgs, metas, session.ov_weight)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    want = {k: 2 if k == "bev_pool_sorted2" else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"batched F=2 launches {launches}, expected {want}")
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"batched F=2 output {k} not finite")
+    diff = {k: (out[k] - stream[k]).abs().max().item() for k in out}
+    scale = {k: stream[k].abs().max().item() for k in out}
+    log(f"batched F=2 veon_b bf16 (banded lift): {ms:.3f} ms, launches {launches}; max |batched - "
+        f"streaming| {diff} against max |streaming| {scale}")
+    return dict(ms=ms, launches=launches, max_abs_diff_vs_streaming=diff, streaming_scale=scale)
 
 
 def _event():
@@ -602,23 +841,37 @@ def main():
     for k, v in builds.items():
         log(v["log"].strip()[-1500:])
 
+    # fp32 stays fp32 on the card: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg = presets.veon_b(compute_dtype="bfloat16")
     kern, (metas, pre, feat, metric, dist) = kernel_phase(cfg)
     sorted_res = sorted_kernel_phase(cfg, metas, feat, metric)
     backward = pooled_backward_phase(cfg, pre, feat, dist)
     del metas, pre, feat, metric, dist
     torch.cuda.empty_cache()
+    ln = ln_dense_phase()
     train_small = train_parity_phase()
     train = train_phase(cfg)
     small = small_parity_phase()
     server, inputs, main_res = main_path(cfg)
     where = breakdown(server, *inputs)
+    del server, inputs
+    torch.cuda.empty_cache()
+    temporal_small = temporal_parity_phase()
+    session, reqs, temporal = temporal_main_path()
+    temporal_where = temporal_breakdown(session, reqs)
+    batched = batched_temporal_phase(session, reqs)
+    del session, reqs
 
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]),
             "bev_pool_sorted": (sorted_res["full_bf16"],
                                 train["full"]["launches"]["bev_pool_sorted"]),
             "bev_pool_sorted2": (sorted_res["band_spray_bf16"],
-                                 train["banded"]["launches"]["bev_pool_sorted2"])}
+                                 train["banded"]["launches"]["bev_pool_sorted2"]),
+            # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
+            "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
+                         + temporal["launches"]["ln_dense"])}
     table = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -629,7 +882,10 @@ def main():
         json.dump({"nvidia_smi": smi, "kind": kind, "kernel": kern, "sorted_kernels": sorted_res,
                    "pooled_backward": backward, "train_small_parity": train_small,
                    "train": train, "small_parity_max_abs": small, "main_path": main_res,
-                   "breakdown": where, "builds": {k: v["seconds"] for k, v in builds.items()}},
+                   "breakdown": where, "ln_dense": ln, "temporal_small_parity": temporal_small,
+                   "temporal_main_path": temporal, "temporal_breakdown": temporal_where,
+                   "batched_temporal": batched,
+                   "builds": {k: v["seconds"] for k, v in builds.items()}},
                   f, indent=1)
     for r, _ in rows.values():
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "library_ms", "bound_ms")):

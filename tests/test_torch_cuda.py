@@ -114,3 +114,45 @@ def test_pooled_op_backward_on_card_matches_cpu(card):
         res[str(dev)] = (out.detach().cpu(), d.grad.cpu(), f.grad.cpu())
     for got, want in zip(res[str(card)], res["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _ln_inputs(card, M, C, N, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = ((2.0 * rng.standard_normal((M, C)) + 0.5), 1.0 + 0.1 * rng.standard_normal(C),
+              0.1 * rng.standard_normal(C), rng.standard_normal((C, N)) / np.sqrt(C),
+              0.1 * rng.standard_normal(N))
+    x, s, sh, w, b = (torch.from_numpy(a.astype(np.float32)).to(card) for a in arrays)
+    return x.to(dtype), s, sh, w.to(dtype), b
+
+
+# kernel #4 at the CPU tests' shapes (M = 1500 ends in a partial row tile)
+# and at the HSA qkv production shape; fp32 at 1e-5 (sums in another
+# order), bf16 at 2e-2 (the normalised row may round to the other bf16
+# neighbour)
+@pytest.mark.parametrize("M,C,N,dtype", [
+    (700, 128, 256, torch.float32), (1500, 384, 1152, torch.bfloat16),
+    (67584, 384, 1152, torch.float32), (67584, 384, 1152, torch.bfloat16)])
+def test_ln_dense_kernel_matches_plain(card, M, C, N, dtype):
+    from veon_tpu_torch.ops import fused_ln
+
+    args = _ln_inputs(card, M, C, N, dtype)
+    before = fused_ln.ln_dense.launches
+    got = fused_ln.ln_dense(*args)
+    torch.cuda.synchronize()
+    assert fused_ln.ln_dense.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (M, N)
+    want = fused_ln.ln_dense_plain(*args)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_ln_dense_rejects_what_it_does_not_take(card):
+    from veon_tpu_torch.ops import fused_ln
+
+    x, s, sh, w, b = _ln_inputs(card, 64, 128, 128, torch.float32)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fused_ln.ln_dense(x[:, :100], s[:100], sh[:100], w[:100], b)
+    with pytest.raises(TypeError):
+        fused_ln.ln_dense(x, s, sh, w.to(torch.bfloat16), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ln.ln_dense(x.t().contiguous().t(), s, sh, w, b)

@@ -1,9 +1,9 @@
 """Dataclass configuration tree of the PyTorch port.
 
-A copy of the fields of `veon_tpu/configs/base.py` that the F=1 serving
-forward and the stage-2 train step read (the port imports nothing of
-`veon_tpu`). ZoeDepth, text-tower and data-loader fields come with the
-slices that port those parts.
+A copy of the fields of `veon_tpu/configs/base.py` that the serving
+forwards (F=1 and temporal) and the stage-2 train step read (the port
+imports nothing of `veon_tpu`). ZoeDepth, text-tower and data-loader
+fields come with the slices that port those parts.
 """
 
 from __future__ import annotations
@@ -38,6 +38,13 @@ class GridConfig:
             int(round((self.y[1] - self.y[0]) / self.y[2])),
             int(round((self.z[1] - self.z[0]) / self.z[2])),
         )
+
+    def scaled(self, ds_zyx: Tuple[int, int, int]) -> "GridConfig":
+        """Grid with z/y/x intervals multiplied by the feature downsample factors."""
+        dz, dy, dx = ds_zyx
+        return dataclasses.replace(self, x=(self.x[0], self.x[1], self.x[2] * dx),
+                                   y=(self.y[0], self.y[1], self.y[2] * dy),
+                                   z=(self.z[0], self.z[1], self.z[2] * dz))
 
     @property
     def num_depth_bins(self) -> int:
@@ -174,7 +181,7 @@ class VeonConfig:
     # lift without a presorted rig (training): the K-banded two-hot with
     # the far-depth spray (True) or the reference full-frustum lift (False)
     lss_banded: bool = True
-    num_temporal: int = 1  # F; the port runs F=1
+    num_temporal: int = 1  # F: the current frame and F-1 previous ones
     vocabulary: str = "nuscenes_brief"
     compute_dtype: str = "float32"  # "bfloat16" for the serving path
 

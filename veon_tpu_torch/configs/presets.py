@@ -9,10 +9,12 @@ from .base import (DataConfig, DepthConfig, GridConfig, HSAConfig,
                    PropagationConfig, SANConfig, VeonConfig)
 
 
-def veon_b(compute_dtype: str = "float32") -> VeonConfig:
-    """VEON-B @ 512x1408 with DepthAnythingV2-L depth."""
+def veon_b(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonConfig:
+    """VEON-B @ 512x1408 with DepthAnythingV2-L depth; num_temporal frames
+    (F) per forward, 2 for the flagship's temporal serving."""
     return VeonConfig(
         compute_dtype=compute_dtype,
+        num_temporal=num_temporal,
         san=SANConfig(),
         hsa=HSAConfig(clip_dim=768, num_heads=12, fusion_map=((0, 3, 3), (1, 6, 6), (2, 9, 9))),
         propagation=PropagationConfig(dim=256, layer_depth=5, clip_proj_dim=512),
@@ -20,9 +22,10 @@ def veon_b(compute_dtype: str = "float32") -> VeonConfig:
     )
 
 
-def veon_tiny_test() -> VeonConfig:
+def veon_tiny_test(num_temporal: int = 1) -> VeonConfig:
     """A miniature config for unit tests: same topology, tiny dims/resolution."""
     return VeonConfig(
+        num_temporal=num_temporal,
         grid=GridConfig(
             x=(-40.0, 40.0, 4.0), y=(-40.0, 40.0, 4.0), z=(-1.0, 5.4, 1.6), depth=(1.0, 45.0, 5.5)
         ),

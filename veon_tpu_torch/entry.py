@@ -9,6 +9,18 @@ Serving, the VEON-B F=1 forward from camera images to the class grid
 The rig is fixed, so its rank sort is precomputed once here
 (`LSSLift.precompute_sorted`) and each frame runs no sort.
 
+Temporal serving, a streaming session over a synthetic drive (counterpart
+of `veon_tpu serve --num-temporal 2`, the flagship's temporal mode):
+
+    session, frames = temporal_entry()         # veon_b, T=2, bf16
+    for r in frames:                           # time order
+        out = session.infer(r["imgs"], r["depth_imgs"],
+                            {"lidarego2global": r["lidarego2global"]})
+        out["pred"]                            # (1, 200, 200, 16) uint8
+
+Each call lifts only its own frame (kernel #1 on the fixed rig) and fuses
+the cached voxels of the previous num_temporal - 1 frames.
+
 Training, the stage-2 step (counterpart of `make_train_step(mesh=None)` on
 the synthetic batch of `veon_tpu/utils/train_bench.py` build_train_setup):
 
@@ -28,7 +40,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .cli.shapes import example_batch, example_batch_full, example_depth_imgs
+from .cli.shapes import example_batch, example_batch_full, example_depth_imgs, example_drive
 from .ckpt.from_jax import load_from_jax
 from .configs import presets
 from .configs.base import VeonConfig
@@ -36,6 +48,7 @@ from .geometry.frustum import sensor2keyego_chain
 from .model.veon import VeonModel, fusion_rule
 from .nn import text as text_mod
 from .nn.layers import init_random_
+from .serve.streaming import TemporalSession
 from .train.step import AdamW, TrainState, create_train_state, make_train_step
 
 
@@ -74,6 +87,29 @@ def _build_model(cfg, dev, seed, variables) -> VeonModel:
     return model
 
 
+def _ov_weight(cfg: VeonConfig, dev):
+    """The numpy-seeded open-vocabulary matrix of the JAX entry and the
+    vocabulary's merge matrix."""
+    prompts, refl = text_mod.build_vocabulary(cfg.vocabulary)
+    rng = np.random.default_rng(1)
+    ovw = torch.from_numpy(rng.standard_normal(
+        (len(prompts) + 1, cfg.san.clip_embed_dim)).astype(np.float32)).to(dev)
+    return ovw, text_mod.merge_matrix(refl)
+
+
+def _with_presort(model: VeonModel, metas):
+    """The rig metas plus the fixed rig's presorted lift streams
+    ("lift_sorted"), from frame 0's geometry."""
+    F, N = metas["intrins"].shape[1:3]
+    s2k = sensor2keyego_chain(metas["sensor2egos"].reshape(1, -1, 4, 4),
+                              metas["ego2globals"].reshape(1, -1, 4, 4), F, N)
+    metas = dict(metas)
+    metas["lift_sorted"] = model.lift.precompute_sorted(
+        s2k[:, 0], metas["intrins"][:, 0], metas["post_rots"][:, 0],
+        metas["post_trans"][:, 0], metas["bda"])
+    return metas
+
+
 def entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
           variables: Optional[Mapping] = None):
     """(forward, (imgs, depth_imgs)) for `cfg` (default: veon_b in bf16);
@@ -83,19 +119,24 @@ def entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
         cfg = presets.veon_b(compute_dtype="bfloat16")
     model = _build_model(cfg, dev, seed, variables)
     imgs, depth_imgs, metas = example_batch_full(cfg, device=dev)
-    prompts, refl = text_mod.build_vocabulary(cfg.vocabulary)
-    rng = np.random.default_rng(1)
-    ovw = torch.from_numpy(rng.standard_normal(
-        (len(prompts) + 1, cfg.san.clip_embed_dim)).astype(np.float32)).to(dev)
-    F, N = metas["intrins"].shape[1:3]
-    s2k = sensor2keyego_chain(metas["sensor2egos"].reshape(1, -1, 4, 4),
-                              metas["ego2globals"].reshape(1, -1, 4, 4), F, N)
-    metas = dict(metas)
-    metas["lift_sorted"] = model.lift.precompute_sorted(
-        s2k[:, 0], metas["intrins"][:, 0], metas["post_rots"][:, 0],
-        metas["post_trans"][:, 0], metas["bda"])
-    server = FrameServer(model, metas, ovw, text_mod.merge_matrix(refl))
-    return server, (imgs, depth_imgs)
+    ovw, membership = _ov_weight(cfg, dev)
+    return FrameServer(model, _with_presort(model, metas), ovw, membership), (imgs, depth_imgs)
+
+
+def temporal_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
+                   variables: Optional[Mapping] = None, num_temporal: int = 2,
+                   frames: int = 4):
+    """(session, requests): a `TemporalSession` for `cfg` (default: veon_b
+    with `num_temporal` frames, bf16) whose rig metas carry the fixed rig's
+    presorted lift, and `frames` requests of the seeded synthetic drive
+    (`cli/shapes.py` `example_drive`), in time order."""
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = presets.veon_b(num_temporal=num_temporal, compute_dtype="bfloat16")
+    model = _build_model(cfg, dev, seed, variables)
+    rig, requests = example_drive(cfg, frames, device=dev, seed=seed)
+    ovw, membership = _ov_weight(cfg, dev)
+    return TemporalSession(model, ovw, membership, rig_metas=_with_presort(model, rig)), requests
 
 
 class Trainer:

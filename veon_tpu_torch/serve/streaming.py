@@ -1,0 +1,110 @@
+"""Stateful streaming temporal serving (counterpart of
+`veon_tpu/serve/streaming.py` `TemporalSession`, without camera sharding).
+
+The batched temporal forward lifts every previous frame again on each
+call. A session does not: each call returns its frame's pre-fusion lifted
+voxels (`early_vox`), the session caches them with the frame's ego pose
+and replays them as the previous frames of the next call. A steady call
+costs one frame's towers and lift plus (F-1) x (ego-motion warp +
+temporal fusion), and its outputs equal the batched forward's on the same
+frames.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from .. import torch_dtype
+from ..data.transforms import normalize_in_graph
+from ..model.veon import VeonModel, fusion_rule, retrieval_map
+from ..nn import text as text_mod
+
+
+class TemporalSession:
+    """The last (num_temporal - 1) frames' early voxels and ego poses of one
+    ego vehicle (B=1), newest first (slot 0 is frame t-1); `infer` serves
+    one frame and rolls the cache.
+
+    Frames arrive in time order. The cache starts at zero voxels and
+    identity poses, so the first num_temporal - 1 calls fuse against zero
+    previous frames; steady state begins at call num_temporal.
+    `estimate_depth=False` takes metric depth in place of depth-tower
+    images; `normalize=(img_method, depth_method)` takes raw uint8 HWC
+    frames and normalizes them on the card (`data/transforms.py`).
+    """
+
+    def __init__(self, model: VeonModel, ov_weight: torch.Tensor, membership=None,
+                 rig_metas: Optional[Dict[str, Any]] = None, estimate_depth: bool = True,
+                 normalize=None, mesh=None):
+        cfg = model.cfg
+        if cfg.num_temporal < 2:
+            raise ValueError("TemporalSession needs cfg.num_temporal >= 2")
+        if mesh is not None:
+            raise NotImplementedError("camera-sharded streaming is not ported yet")
+        self.model, self.ov_weight, self.membership = model, ov_weight, membership
+        self.rig_metas = dict(rig_metas or {})
+        self.estimate_depth, self.normalize = estimate_depth, normalize
+        dev = ov_weight.device
+        nx, ny, nz = cfg.grid.size
+        dz, dy, dx = cfg.lss_feat_ds
+        T = cfg.num_temporal - 1
+        self._vox = torch.zeros((1, T, nz // dz, ny // dy, nx // dx, cfg.propagation.dim),
+                                dtype=torch_dtype(cfg.compute_dtype), device=dev)
+        self._l2g = torch.eye(4, device=dev).expand(1, T, 4, 4).clone()
+        self._zero_embed = torch.zeros(cfg.propagation.clip_proj_dim, device=dev)
+        self.calls = 0
+
+    @torch.no_grad()
+    def infer(self, imgs, depth_imgs, metas, text_embed=None) -> Dict[str, torch.Tensor]:
+        """One temporal step. imgs (1, 1, N, H, W, 3) and depth_imgs (or
+        metric depth) of one frame; metas: this frame's lidarego2global
+        (1, 4, 4) and any rig keys that differ from the session's
+        `rig_metas` (which carry the presorted lift). text_embed (C,) adds a
+        free-text `retrieval` map. Returns the model's outputs, `pred` (the
+        uint8 (1, X, Y, Z) class grid, when the session has a membership
+        matrix) and `retrieval`."""
+        m = dict(self.rig_metas)
+        m.update(metas)
+        if self.normalize is not None:
+            imgs = normalize_in_graph(imgs, self.normalize[0])
+            if self.estimate_depth:
+                depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
+        run = (self.model.full_forward_streaming if self.estimate_depth
+               else self.model.forward_streaming)
+        out = run(imgs, depth_imgs, m, self.ov_weight, self._vox, self._l2g)
+        if self.membership is not None:
+            merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1)
+            out["pred"] = fusion_rule(merged, out["bin_occ"]).to(torch.uint8)
+        te = self._zero_embed if text_embed is None else torch.as_tensor(
+            text_embed, dtype=torch.float32, device=self._zero_embed.device)
+        out["retrieval"] = retrieval_map(out["feat_occ"], te)
+        early = out.pop("early_vox")
+        l2g = m["lidarego2global"].to(torch.float32)
+        self._vox = torch.cat([early[:, None].to(self._vox.dtype), self._vox[:, :-1]], 1)
+        self._l2g = torch.cat([l2g[:, None], self._l2g[:, :-1]], 1)
+        self.calls += 1
+        return out
+
+    def reset(self) -> None:
+        """Zero the cache (a scene cut or a new sequence)."""
+        self._vox = torch.zeros_like(self._vox)
+        self._l2g = torch.eye(4, device=self._l2g.device).expand_as(self._l2g).clone()
+        self.calls = 0
+
+    def state(self):
+        """(prev_vox, prev_lidarego2global), newest first."""
+        return self._vox, self._l2g
+
+    def load_state(self, vox, l2g, calls: Optional[int] = None) -> None:
+        """Restore a cache saved by `state`; pass the saved `calls` to keep
+        the cold-start count consistent with it."""
+        if tuple(vox.shape) != tuple(self._vox.shape):
+            raise ValueError(f"vox shape {tuple(vox.shape)} != {tuple(self._vox.shape)}")
+        if tuple(l2g.shape) != tuple(self._l2g.shape):
+            raise ValueError(f"l2g shape {tuple(l2g.shape)} != {tuple(self._l2g.shape)}")
+        self._vox = torch.as_tensor(vox).to(self._vox.device, self._vox.dtype)
+        self._l2g = torch.as_tensor(l2g).to(self._l2g.device, torch.float32)
+        if calls is not None:
+            self.calls = int(calls)
