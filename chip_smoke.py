@@ -7,12 +7,16 @@ Phases; any failed check raises, so the exit code is non-zero:
      source, started together);
   2. hold each kernel against its plain PyTorch version on the card at the
      flagship shapes and time kernel, plain version and the PyTorch library
-     equivalent with CUDA events: #1 (pooled) on the serving rig; #2 (one
-     sorted stream) on the full frustum, on the K-band and as the pooled
-     op's backward recompute (with that backward as a whole); #3 (two
-     streams) on the K-band plus the far-depth spray; #4 (fused
-     LayerNorm -> Dense) at the HSA qkv, HSA MLP and SAN qkv shapes; fp32
-     and bf16;
+     equivalent with CUDA events (`time_ms`: many launches per event pair):
+     #1 (the pooled pool with its gather fused in) on the serving rig, the
+     whole op's forward with L2 flushed and warm, against the plain
+     version, the library and the gather alone, in turns, with the op's and
+     the plain version's peak-memory deltas; #2 (one sorted stream) on the
+     full frustum, on the K-band and as the pooled op's backward recompute
+     (with that backward as a whole); #3 (two streams) on the K-band plus
+     the far-depth spray; #4 (fused LayerNorm -> Dense) at the HSA qkv, HSA
+     MLP and SAN qkv shapes, in turns with the library pair, with each
+     time's share of the bound; fp32 and bf16;
   3. the stage-2 train step at a small size on the card against the same
      model on the CPU (plain versions), same weights and batch;
   4. training, a main path: `veon_tpu_torch.entry.train_entry` at full
@@ -86,8 +90,10 @@ def reset_launches():
     return fns
 
 
-def time_ms(fn, warmup=3, iters=25):
-    """Median of `iters` CUDA-event timings after `warmup` calls."""
+def time_ms(fn, warmup=3, iters=10, reps=10):
+    """Median over `iters` samples of the CUDA-event time of `reps`
+    back-to-back calls, per call, after `warmup` calls: the device time
+    wherever the host enqueues faster than the device runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -95,11 +101,44 @@ def time_ms(fn, warmup=3, iters=25):
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+FLUSH_BYTES = 128 * 2**20  # written between cold launches: over twice the 50 MB L2
+
+
+def cold_times(fn, flush, iters=10):
+    """CUDA-event times of single calls of fn, each after a 128 MB write that
+    evicts L2 and a device-side wait that keeps the card busy while the host
+    enqueues the call (so the host's own time stays out)."""
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(200_000)  # ~0.1 ms of device spin
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def peak_delta(fn):
+    """Device bytes fn allocates at its peak beyond what is live before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    delta = torch.cuda.max_memory_allocated() - base
+    del out
+    return delta
 
 
 def bf16_ulp(x):
@@ -129,8 +168,16 @@ def bound(nbytes, ops, ops_per_s=PEAK_FP32_OPS_PER_S):
 
 
 def kernel_phase(cfg):
-    """Kernel #1 vs its plain version on the flagship rig precompute (which
-    must equal the CPU's, integer for integer)."""
+    """Kernel #1 (gather, weights, fine-cell sums and max in one kernel) vs
+    its plain version (`presorted_vals` + `bev_pool_pooled_plain`) on the
+    flagship rig precompute (which must equal the CPU's, integer for
+    integer), fp32 at 1e-5 and bf16 within one ulp. Times, in turns (plain,
+    kernel, kernel, plain) with L2 flushed before each call: the op's whole
+    forward (`bev_pool_presorted_pooled`, its CSR starts included), the
+    plain version, the library (`presorted_vals` + `index_add_` + `amax`) and
+    the gather `presorted_vals` alone; then the same warm. The byte bound
+    counts the in-grid rows' order, rank and weight, the feature rows of the
+    pixels they use, the CSR starts and the output, each once."""
     from veon_tpu_torch.cli.shapes import example_batch_full
     from veon_tpu_torch.geometry.frustum import sensor2keyego_chain
     from veon_tpu_torch.lift.lss import LSSLift, two_hot_depth
@@ -151,42 +198,81 @@ def kernel_phase(cfg):
             raise AssertionError(f"flagship rig precompute {k} differs between the card and the CPU")
     nx, ny, nz = cfg.grid.size
     num_cells, pool_r, C = nx * ny * nz, 8, cfg.propagation.dim
-    p_cap = int(pre["order"].shape[0])
-    n_valid = int((pre["rk_pooled"] < num_cells).sum())
+    D = cfg.grid.num_depth_bins
+    order, rk, ranks = pre["order"], pre["rk_pooled"], pre["ranks"]
+    p_cap = int(order.shape[0])
+    valid = rk < num_cells
+    n_valid = int(valid.sum())
+    n_pix = int(torch.unique(order[valid].long() // D).numel())
     h, w = cfg.feat_hw
     g = torch.Generator(device=dev).manual_seed(7)
     feat = torch.randn(1, cfg.data.num_cams, h, w, C, generator=g, device=dev)
     metric = torch.rand(1, cfg.data.num_cams, h, w, generator=g, device=dev) * 58.0 + 1.5
     dist = two_hot_depth(metric, cfg.grid)
-    rk = pre["rk_pooled"]
-    results = {"p_cap": p_cap, "n_valid": n_valid, "C": C, "num_cells": num_cells}
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    n_coarse = num_cells // pool_r
+    results = {"p_cap": p_cap, "n_valid": n_valid, "pixels_used": n_pix, "C": C,
+               "num_cells": num_cells}
     for dt, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-        vals = bp.presorted_vals(dist.to(dt), feat.to(dt), pre["order"]).contiguous()
-        got = bp.bev_pool_pooled(vals, rk, num_cells, pool_r, dt)
+        d, f = dist.to(dt), feat.to(dt)
+        got = bp.bev_pool_pooled(d, f, order, rk, num_cells, pool_r)
+        vals = bp.presorted_vals(d, f, order)
         plain = bp.bev_pool_pooled_plain(vals, rk, num_cells, pool_r, dt)
         ref32 = bp.bev_pool_pooled_plain(vals, rk, num_cells, pool_r, torch.float32)
         torch.cuda.synchronize()
         err = (got.float() - plain.float()).abs().max().item()
         check_kernel(got, plain, ref32, dt, f"bev_pool_pooled {name}")
-        ms = time_ms(lambda: bp.bev_pool_pooled(vals, rk, num_cells, pool_r, dt))
-        plain_ms = time_ms(lambda: bp.bev_pool_pooled_plain(vals, rk, num_cells, pool_r, dt))
-        acc = torch.zeros(num_cells + 1, C, dtype=torch.float32, device=dev)
+        del got, vals, plain, ref32
         idx = rk.long().clamp(max=num_cells)
-        vals32 = vals.float()
+        acc = torch.zeros(num_cells + 1, C, dtype=torch.float32, device=dev)
+
+        def op():
+            with torch.no_grad():
+                return bp.bev_pool_presorted_pooled(d, f, order, rk, ranks, cfg.grid.size,
+                                                    (2, 2, 2))
+
+        def plain_op():
+            return bp.bev_pool_pooled_plain(bp.presorted_vals(d, f, order), rk, num_cells,
+                                            pool_r, dt)
 
         def library():
-            acc.index_add_(0, idx, vals32)
+            acc.zero_()
+            acc.index_add_(0, idx, bp.presorted_vals(d, f, order).float())
             return acc[:num_cells].view(-1, pool_r, C).amax(1)
 
-        library_ms = time_ms(library)
-        nbytes = p_cap * C * vals.element_size() + 4 * p_cap + num_cells // pool_r * C * vals.element_size()
-        bound_ms, bound_by = bound(nbytes, n_valid * C)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
-        log(f"kernel bev_pool_pooled {name}: P_cap {p_cap} n_valid {n_valid} C {C}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library(index_add_+amax) "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB), "
+        def gather():
+            return bp.presorted_vals(d, f, order)
+
+        calls = {"kernel": op, "plain": plain_op, "library": library, "gather": gather}
+        for fn in calls.values():  # warm-up (and first-use build) before any timing
+            fn()
+        cold = {k: [] for k in calls}
+        for k in ("plain", "kernel", "kernel", "plain", "library", "gather", "gather", "library"):
+            cold[k] += cold_times(calls[k], flush)
+        cold = {k: statistics.median(v) for k, v in cold.items()}
+        warm = {k: time_ms(fn) for k, fn in calls.items()}
+        peak = {k: peak_delta(calls[k]) for k in ("kernel", "plain")}
+        elt = f.element_size()
+        nbytes = n_valid * (8 + elt) + n_pix * C * elt + n_coarse * C * elt + (n_coarse + 1) * 4
+        bound_ms, bound_by = bound(nbytes, 2 * n_valid * C)
+        results[name] = dict(
+            max_abs_err=err, ms=cold["kernel"], plain_ms=cold["plain"],
+            library_ms=cold["library"], gather_ms=cold["gather"], warm_ms=warm["kernel"],
+            warm_plain_ms=warm["plain"], warm_library_ms=warm["library"],
+            warm_gather_ms=warm["gather"], bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            peak_delta_bytes=peak["kernel"], plain_peak_delta_bytes=peak["plain"])
+        log(f"kernel bev_pool_pooled {name} (gather fused): P_cap {p_cap} n_valid {n_valid} "
+            f"pixels {n_pix} C {C}: L2 flushed: op forward {cold['kernel']:.4f} ms, plain "
+            f"{cold['plain']:.4f} ms, library(presorted_vals + index_add_ + amax) "
+            f"{cold['library']:.4f} ms, presorted_vals alone {cold['gather']:.4f} ms; warm: op "
+            f"{warm['kernel']:.4f}, plain {warm['plain']:.4f}, library {warm['library']:.4f}, "
+            f"presorted_vals {warm['gather']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{nbytes / 1e6:.1f} MB), share {bound_ms / cold['kernel']:.3f}; peak memory delta "
+            f"op {peak['kernel'] / 2**20:.1f} MiB, plain {peak['plain'] / 2**20:.1f} MiB; "
             f"max|kernel-plain| {err:.3g}")
+        del acc, idx
+    del flush
+    torch.cuda.empty_cache()
     return results, (metas, pre, feat, metric, dist)
 
 
@@ -648,10 +734,12 @@ def ln_dense_phase():
             torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol,
                                        msg=f"ln_dense {shape} {dname}")
             s_dt, sh_dt, b_dt, w_t = s.to(dt), sh.to(dt), b.to(dt), w.t()
-            ms = time_ms(lambda: fl.ln_dense(x, s, sh, w, b))
+            kernel = lambda: fl.ln_dense(x, s, sh, w, b)  # noqa: E731
+            library = lambda: F.linear(F.layer_norm(x, (C,), s_dt, sh_dt, 1e-5), w_t, b_dt)  # noqa: E731
+            # in turns: kernel, library, library, kernel
+            k1, l1, l2, k2 = (time_ms(fn) for fn in (kernel, library, library, kernel))
+            ms, library_ms = min(k1, k2), min(l1, l2)
             plain_ms = time_ms(lambda: fl.ln_dense_plain(x, s, sh, w, b))
-            library_ms = time_ms(lambda: F.linear(F.layer_norm(x, (C,), s_dt, sh_dt, 1e-5),
-                                                  w_t, b_dt))
             elt = x.element_size()
             nbytes = M * C * elt + C * N * elt + (2 * C + N) * 4 + M * N * elt
             ops = 2 * M * C * N + 8 * M * C
@@ -659,11 +747,13 @@ def ln_dense_phase():
                                        if dt == torch.bfloat16 else PEAK_FP32_OPS_PER_S)
             results[f"{shape}_{dname}"] = dict(
                 M=M, C=C, N=N, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+                bound_share=bound_ms / ms)
             log(f"kernel ln_dense {shape} {dname} {M}x{C} @ {C}x{N}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, library(F.layer_norm + F.linear, two calls) "
                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, "
-                f"{ops / 1e9:.1f} GFLOP), max|kernel-plain| {err:.3g} (tol {tol})")
+                f"{ops / 1e9:.1f} GFLOP), share of bound {bound_ms / ms:.3f}, max|kernel-plain| "
+                f"{err:.3g} (tol {tol})")
             del x, w, got, plain
     results["phase_launches"] = fl.ln_dense.launches
     log(f"ln_dense launches in this phase (checks and timing): {fl.ln_dense.launches}")

@@ -22,11 +22,52 @@ def card():
 
 
 def _stream(card, P, C, num_cells, dtype, seed=0):
-    """Sorted ranks with empty fine cells, empty coarse cells and overflow rows."""
+    """Sorted ranks with empty cells and overflow rows."""
     rng = np.random.default_rng(seed)
     rk = np.sort(rng.integers(0, num_cells + num_cells // 8, P)).astype(np.int32)
     vals = torch.from_numpy(rng.standard_normal((P, C)).astype(np.float32))
     return vals.to(card, dtype), torch.from_numpy(rk).to(card)
+
+
+def _pooled_case(card, C, dtype, seed=0, num_coarse=600, pool_r=8):
+    """Kernel #1's inputs: two-hot-like weights as the sliced softmax view
+    `two_hot_depth` makes (pixel stride D + 1, bin stride 1), features, and
+    the coarse-major sorted point stream. Every pixel's bins land in runs of
+    one cell (several points of a pixel in one cell), a third of the points
+    crowd into three coarse cells (cells of hundreds of rows, the shape of
+    the cells next to the cameras), a quarter overflow, and many fine and
+    coarse cells stay empty."""
+    rng = np.random.default_rng(seed)
+    B, N, D, h, w = 1, 3, 16, 8, 12
+    num_cells = num_coarse * pool_r
+    logits = rng.standard_normal((B, N, h, w, D + 1)).astype(np.float32)
+    depth = torch.softmax(torch.from_numpy(logits), -1)[..., :D].movedim(-1, 2)
+    feat = torch.from_numpy(rng.standard_normal((B, N, h, w, C)).astype(np.float32))
+    P = B * N * h * w * D
+    ranks = np.repeat(rng.integers(0, num_cells, P // 4), 4)  # runs of 4 bins per cell
+    crowd = rng.random(P) < 0.3
+    ranks[crowd] = rng.integers(0, 3, crowd.sum()) * pool_r * 7 + rng.integers(0, pool_r, crowd.sum())
+    ranks[rng.random(P) < 0.25] = num_cells + 5  # overflow
+    order = np.argsort(ranks, kind="stable")
+    n_valid = int((ranks < num_cells).sum())
+    order = order[:min(-(-n_valid // 256) * 256, P)]
+    rk = torch.from_numpy(ranks[order].astype(np.int32)).to(card)
+    order = torch.from_numpy(order.astype(np.int32)).to(card)
+    return depth.to(card, dtype), feat.to(card, dtype), order, rk, num_cells
+
+
+def _assert_pooled_close(got, vals, rk, num_cells, pool_r, dtype):
+    """fp32: 1e-5 of the plain version (sums in another order). bf16: within
+    one bf16 ulp (at the larger magnitude) of the fp32 sum of the same bf16
+    products, on top of the fp32 tolerance."""
+    ref32 = bp.bev_pool_pooled_plain(vals, rk, num_cells, pool_r, torch.float32)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref32, rtol=1e-5, atol=1e-5)
+        return
+    big = torch.maximum(got.float().abs(), ref32.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    over = (got.float() - ref32).abs() - (ulp + 1e-5 + 1e-5 * ref32.abs())
+    assert over.max().item() <= 0, f"bf16 off by more than one ulp: {over.max().item()}"
 
 
 # C=256: 16-byte vector loads (the flagship); C=12 fp32: 3 x float4;
@@ -34,27 +75,42 @@ def _stream(card, P, C, num_cells, dtype, seed=0):
 @pytest.mark.parametrize("C", [256, 12])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pool_kernel_matches_plain(card, C, dtype):
-    num_cells, pool_r = 8 * 1000, 8
-    vals, rk = _stream(card, 20000, C, num_cells, dtype)
+    """Kernel #1 (gather, weights, fine-cell sums, max) against its plain
+    version on the card: empty fine and coarse cells, overflow rows, several
+    points of a pixel in one cell, and cells long enough for the block's
+    warps to share them."""
+    depth, feat, order, rk, num_cells = _pooled_case(card, C, dtype)
+    counts = torch.bincount(rk[rk < num_cells].long() // 8, minlength=num_cells // 8)
+    assert counts.max() > 200 and (counts == 0).any()  # long and empty coarse cells
     before = bp.bev_pool_pooled.launches
-    got = bp.bev_pool_pooled(vals, rk, num_cells, pool_r, dtype)
+    got = bp.bev_pool_pooled(depth, feat, order, rk, num_cells, 8)
     torch.cuda.synchronize()
     assert bp.bev_pool_pooled.launches == before + 1
-    want32 = bp.bev_pool_pooled_plain(vals, rk, num_cells, pool_r, torch.float32)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want32, rtol=1e-5, atol=1e-5)
-    else:  # fp32 sums in another order, then one bf16 rounding
-        torch.testing.assert_close(got.float(), want32, rtol=2 ** -7, atol=1e-5)
+    assert got.dtype == dtype and tuple(got.shape) == (num_cells // 8, C)
+    _assert_pooled_close(got, bp.presorted_vals(depth, feat, order), rk, num_cells, 8, dtype)
+
+
+def test_pool_kernel_reads_the_depth_view_in_place(card):
+    """The sliced softmax view, its contiguous copy and a view whose strides
+    no (pixel, bin) pair describes (the wrapper copies it) give one result,
+    bit for bit."""
+    depth, feat, order, rk, num_cells = _pooled_case(card, 256, torch.bfloat16, seed=3)
+    assert not depth.is_contiguous()
+    got = bp.bev_pool_pooled(depth, feat, order, rk, num_cells, 8)
+    for other in (depth.contiguous(),
+                  depth.transpose(3, 4).contiguous().transpose(3, 4)):
+        torch.testing.assert_close(bp.bev_pool_pooled(other, feat, order, rk, num_cells, 8), got,
+                                   rtol=0, atol=0)
 
 
 def test_pool_kernel_rejects_what_it_does_not_take(card):
-    vals, rk = _stream(card, 100, 16, 64, torch.float32)
+    depth, feat, order, rk, num_cells = _pooled_case(card, 16, torch.float32)
     with pytest.raises(TypeError):
-        bp.bev_pool_pooled(vals, rk, 64, 8, torch.bfloat16)
+        bp.bev_pool_pooled(depth.to(torch.bfloat16), feat, order, rk, num_cells, 8)
     with pytest.raises(ValueError):
-        bp.bev_pool_pooled(vals, rk.long(), 64, 8, torch.float32)
+        bp.bev_pool_pooled(depth, feat, order.long(), rk, num_cells, 8)
     with pytest.raises(ValueError):
-        bp.bev_pool_pooled(vals, rk.cpu(), 64, 8, torch.float32)
+        bp.bev_pool_pooled(depth, feat, order, rk.cpu(), num_cells, 8)
 
 
 # kernels #2 (one stream) and #3 (two streams): C=256 is the flagship's
@@ -126,12 +182,18 @@ def _ln_inputs(card, M, C, N, dtype, seed=0):
 
 
 # kernel #4 at the CPU tests' shapes (M = 1500 ends in a partial row tile)
-# and at the HSA qkv production shape; fp32 at 1e-5 (sums in another
-# order), bf16 at 2e-2 (the normalised row may round to the other bf16
-# neighbour)
+# and at the HSA qkv production shape, and at the edges of what it takes:
+# one row, C = 128 and 1024, N = 128 and 1152, and the C where the tile
+# shapes change (C = 512: the shortest ring of the 128-row bf16 tile; 640:
+# 64-row tiles in both paths; 1024: 32-row fp32 tiles); fp32 at 1e-5 (sums
+# in another order), bf16 at 2e-2 (the normalised row may round to the
+# other bf16 neighbour)
 @pytest.mark.parametrize("M,C,N,dtype", [
     (700, 128, 256, torch.float32), (1500, 384, 1152, torch.bfloat16),
-    (67584, 384, 1152, torch.float32), (67584, 384, 1152, torch.bfloat16)])
+    (67584, 384, 1152, torch.float32), (67584, 384, 1152, torch.bfloat16)] + [
+    (M, C, N, dt) for M, C, N in ((1, 128, 128), (1, 1024, 1152), (1500, 128, 128),
+                                  (1500, 1024, 1152), (513, 512, 384), (777, 640, 256))
+    for dt in (torch.float32, torch.bfloat16)])
 def test_ln_dense_kernel_matches_plain(card, M, C, N, dtype):
     from veon_tpu_torch.ops import fused_ln
 
@@ -156,3 +218,6 @@ def test_ln_dense_rejects_what_it_does_not_take(card):
         fused_ln.ln_dense(x, s, sh, w.to(torch.bfloat16), b)
     with pytest.raises(ValueError, match="contiguous"):
         fused_ln.ln_dense(x.t().contiguous().t(), s, sh, w, b)
+    x, s, sh, w, b = _ln_inputs(card, 4, 1152, 128, torch.float32)
+    with pytest.raises(ValueError, match="C <= 1024"):
+        fused_ln.ln_dense(x, s, sh, w, b)

@@ -18,7 +18,7 @@ from veon_tpu.configs.base import GridConfig as JGrid
 from veon_tpu.lift import lss as jlss
 from veon_tpu.geometry.frustum import pixel_ray_geometry as j_rays, voxel_ranks as j_voxel_ranks
 from veon_tpu.ops.bev_pool import (bev_pool_pallas, bev_pool_pallas_banded,
-                                   bev_pool_pallas_banded2)
+                                   bev_pool_pallas_banded2, bev_pool_pallas_presorted_pooled)
 from veon_tpu.ops.bev_pool import pooled_rank_remap as j_pooled_rank_remap
 from veon_tpu.ops import resize as jres
 
@@ -125,8 +125,9 @@ def test_prefix_holds_every_in_grid_point(rig):
 
 
 def test_pool_plain_matches_pallas_kernel(rig):
-    """The CUDA kernel's plain version (the CPU path of the wrapper) vs the
-    Pallas kernel run in interpret mode, at 1e-5 (fp32 sums in another order)."""
+    """The CUDA kernel's plain version (the CPU path of the wrapper, gather
+    included) vs the Pallas kernel run in interpret mode, at 1e-5 (fp32 sums
+    in another order): through the lift, and the wrapper called directly."""
     _, jlift, tlift, want_pre, got_pre = rig
     C = 2
     B, N = got_pre["ranks"].shape[:2]
@@ -139,6 +140,65 @@ def test_pool_plain_matches_pallas_kernel(rig):
     got = to_np(tlift.lift_presorted(to_torch(feat), to_torch(dist), got_pre))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    num_cells = B * int(np.prod(tlift.grid.size))
+    direct = tbp.bev_pool_pooled(to_torch(dist), to_torch(feat), got_pre["order"],
+                                 got_pre["rk_pooled"], num_cells, 8)
+    np.testing.assert_array_equal(to_np(direct), got.reshape(-1, C))
+    assert tbp.bev_pool_pooled.launches == 0  # the plain path launches nothing
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each value of x (fp32 numpy)."""
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_wrapper_matches_pallas_op(dtype):
+    """The pooled pool's wrapper on CPU tensors (gather + plain pool) vs the
+    JAX op `bev_pool_pallas_presorted_pooled` (Pallas in interpret mode) on
+    the tiny rig, with the sliced softmax view of `two_hot_depth` as the
+    weights. fp32 at 1e-5; bf16 (products rounded once to bf16, fp32 sums,
+    one cast) within one bf16 ulp of the fp32 sum of the same bf16
+    products, for the port and for JAX. The non-contiguous view gives what
+    its contiguous copy gives."""
+    grid_kw, input_size, ds, args = RIGS["tiny"]
+    jgrid, tgrid = JGrid(**grid_kw), TGrid(**grid_kw)
+    jlift = jlss.LSSLift(grid=jgrid, input_size=input_size, downsample=ds, out_channels=16)
+    tlift = tlss.LSSLift(grid=tgrid, input_size=input_size, downsample=ds)
+    want_pre = jlift.precompute_sorted(*map(jnp.asarray, args))
+    pre = tlift.precompute_sorted(*map(to_torch, args))
+    B, N = pre["ranks"].shape[:2]
+    hf, wf = input_size[0] // ds, input_size[1] // ds
+    rng = np.random.default_rng(9)
+    feat = rng.standard_normal((B, N, hf, wf, 16)).astype(np.float32)
+    metric = rng.uniform(1.2, 9.0, (B, N, hf, wf)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    depth = tlss.two_hot_depth(to_torch(metric), tgrid).to(tdt)
+    if dtype == "float32":
+        assert not depth.is_contiguous()  # the sliced softmax view
+    f = to_torch(feat).to(tdt)
+    num_cells = B * int(np.prod(tgrid.size))
+    got = tbp.bev_pool_pooled(depth, f, pre["order"], pre["rk_pooled"], num_cells, 8)
+    assert got.dtype == tdt and tuple(got.shape) == (num_cells // 8, 16)
+    torch.testing.assert_close(got, tbp.bev_pool_pooled(depth.contiguous(), f, pre["order"],
+                                                        pre["rk_pooled"], num_cells, 8),
+                               rtol=0, atol=0)
+    jd = jnp.asarray(depth.float().numpy()).astype(dtype)
+    want = np.asarray(bev_pool_pallas_presorted_pooled(
+        jd, jnp.asarray(f.float().numpy()).astype(dtype), want_pre["order"],
+        want_pre["rk_pooled"], want_pre["ranks"], jgrid.size, (2, 2, 2)).astype(jnp.float32))
+    got = to_np(got.float()).reshape(want.shape)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        return
+    ref32 = to_np(tbp.bev_pool_pooled_plain(tbp.presorted_vals(depth, f, pre["order"]),
+                                            pre["rk_pooled"], num_cells, 8, torch.float32))
+    ref32 = ref32.reshape(want.shape)
+    for name, out in (("port", got), ("jax", want)):
+        over = np.abs(out - ref32) - (_bf16_ulp(np.maximum(np.abs(out), np.abs(ref32)))
+                                      + 1e-5 + 1e-5 * np.abs(ref32))
+        assert over.max() <= 0, f"{name} bf16 off by more than one ulp: {over.max()}"
+    assert np.abs(ref32).max() > 0.1  # the rig puts mass in the grid
 
 
 def _grads(fn, args, argnums, cot):
@@ -402,16 +462,29 @@ def test_sorted_pool_wrappers_are_plain_on_cpu():
 
 
 def test_pool_wrapper_is_forward_only_and_plain_on_cpu():
+    """On CPU tensors the pooled wrapper gathers and weights the sorted rows
+    (`presorted_vals`) and runs the plain pool, launching nothing: the max
+    over fine-cell sums, empty cells counting as 0, overflow rows dropped.
+    It is forward-only and takes depth and feat of one dtype."""
     rng = np.random.default_rng(2)
-    vals = torch.from_numpy(rng.standard_normal((40, 8)).astype(np.float32))
-    rk = torch.from_numpy(np.sort(rng.integers(0, 70, 40)).astype(np.int32))  # >= 64 overflow
-    out = tbp.bev_pool_pooled(vals, rk, 64, 8, torch.float32)
+    B, N, D, h, w, C = 1, 2, 5, 2, 2, 8
+    depth = torch.from_numpy(rng.random((B, N, D, h, w)).astype(np.float32))
+    feat = torch.from_numpy(rng.standard_normal((B, N, h, w, C)).astype(np.float32))
+    ranks = rng.integers(0, 70, B * N * h * w * D).astype(np.int32)  # >= 64 overflow
+    order = torch.from_numpy(np.argsort(ranks, kind="stable").astype(np.int32))
+    rk = torch.from_numpy(ranks[order.numpy()])
+    out = tbp.bev_pool_pooled(depth, feat, order, rk, 64, 8)
+    vals = tbp.presorted_vals(depth, feat, order)
     torch.testing.assert_close(out, tbp.bev_pool_pooled_plain(vals, rk, 64, 8, torch.float32))
     # direct check of the contract: max over fine-cell sums, empty cells count as 0
-    want = np.zeros((65, 8), np.float32)
-    np.add.at(want, np.minimum(rk.numpy(), 64), vals.numpy())
-    want = want[:64].reshape(8, 8, 8).max(1)
+    wts = depth.permute(0, 1, 3, 4, 2).reshape(-1).numpy()
+    rows = feat.reshape(-1, C).numpy()[order.numpy() // D] * wts[order.numpy()][:, None]
+    want = np.zeros((65, C), np.float32)
+    np.add.at(want, np.minimum(rk.numpy(), 64), rows)
+    want = want[:64].reshape(8, 8, C).max(1)
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-6, atol=1e-6)
     assert tbp.bev_pool_pooled.launches == 0  # the plain path launches nothing
     with pytest.raises(NotImplementedError, match="forward-only"):
-        tbp.bev_pool_pooled(vals.requires_grad_(), rk, 64, 8, torch.float32)
+        tbp.bev_pool_pooled(depth.clone().requires_grad_(), feat, order, rk, 64, 8)
+    with pytest.raises(TypeError, match="one dtype"):
+        tbp.bev_pool_pooled(depth.to(torch.bfloat16), feat, order, rk, 64, 8)

@@ -1,15 +1,16 @@
 """Voxel pools over sorted point streams (counterpart of
 `veon_tpu/ops/bev_pool.py`).
 
-Every pool here is: sort the lift's points by voxel rank, gather and weight
-their feature rows (torch ops), then sum the rows of each cell in one pass
-of a hand-written CUDA kernel:
+Every pool here sums the weighted feature rows of the lift's points, sorted
+by voxel rank, per cell in one pass of a hand-written CUDA kernel:
   * `bev_pool_pooled` (`csrc/bev_pool_pooled.cu`, TPU kernel
-    `_bev_pool_block_kernel_pooled`): one presorted coarse-major stream,
+    `_bev_pool_block_kernel_pooled` and its gather): one presorted
+    coarse-major stream whose rows the kernel gathers and weights itself,
     fine-cell sums max-pooled per group of pool_r cells (serving);
   * `bev_pool_sorted` (`csrc/bev_pool_sorted.cu`, TPU kernel
-    `_bev_pool_block_kernel`): one stream, per-cell sums (the full-frustum
-    and K-banded lifts, and the pooled op's backward);
+    `_bev_pool_block_kernel`): one stream gathered and weighted by torch
+    ops, per-cell sums (the full-frustum and K-banded lifts, and the
+    pooled op's backward);
   * `bev_pool_sorted2` (same source, TPU kernel `_bev_pool_block_kernel2`):
     two streams summed into one grid (the banded lift with its far-depth
     spray, the training default).
@@ -32,6 +33,8 @@ import torch
 from . import native
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_POOLED_ARGTYPES = (ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,) * 5 + \
+    (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
 # A capped stream (`valid_cap`) keeps its sorted prefix rounded up to this
 # many rows (the JAX kernel's DMA chunk), as the JAX ops do.
@@ -87,39 +90,83 @@ def _cell_starts(rk_sorted, num_cells: int, step: int = 1):
 
 
 def bev_pool_pooled_plain(vals, rk_sorted, num_cells: int, pool_r: int, out_dtype):
-    """Plain PyTorch version of the kernel: fp32 index_add_ into
-    (num_cells + 1, C) with overflow rows in the last row, max over each
-    group of pool_r fine cells, one cast."""
+    """Plain PyTorch version of the pool: fp32 index_add_ of the gathered
+    rows `vals` (`presorted_vals`) into (num_cells + 1, C) with overflow
+    rows in the last row, max over each group of pool_r fine cells, one
+    cast."""
     acc = torch.zeros(num_cells + 1, vals.shape[1], dtype=torch.float32, device=vals.device)
     acc.index_add_(0, rk_sorted.long().clamp(max=num_cells), vals.float())
     return acc[:num_cells].reshape(num_cells // pool_r, pool_r, -1).amax(1).to(out_dtype)
 
 
-def bev_pool_pooled(vals, rk_sorted, num_cells: int, pool_r: int, out_dtype):
-    """(P_cap, C) rows sorted by coarse-major rank -> (num_cells // pool_r, C)
-    pooled grid. Counts its kernel launches in `bev_pool_pooled.launches`.
-    Forward only: `bev_pool_presorted_pooled` differentiates it."""
-    if vals.requires_grad:
+def _weight_strides(depth):
+    """(weights, pixel stride, bin stride), strides in elements, such that
+    the weight of point pix * D + d lies pix * pixel stride + d * bin stride
+    elements past weights' data pointer. The sliced softmax view of `two_hot_depth`
+    (pixel stride D + 1, bin stride 1) is read in place; a view those two
+    strides cannot describe is made contiguous."""
+    view = depth.permute(0, 1, 3, 4, 2)  # (B, N, h, w, D), pixel-major
+    *sizes, D = view.shape
+    *strides, bin_stride = view.stride()
+    pix_stride = strides[-1]
+    expect = pix_stride
+    for size, stride in zip(reversed(sizes), reversed(strides)):
+        if size > 1 and stride != expect:
+            view = view.contiguous()
+            return view, D, 1
+        expect *= size
+    return view, pix_stride, bin_stride
+
+
+def bev_pool_pooled(depth, feat, order, rk_sorted, num_cells: int, pool_r: int):
+    """The presorted pooled lift's forward, gather included: depth
+    (B, N, D, h, w) two-hot weights, feat (B, N, h, w, C) of one dtype,
+    `order` / `rk_sorted` (int32, P_cap) from `LSSLift.precompute_sorted`
+    -> (num_cells // pool_r, C) pooled grid in feat's dtype. Counts its
+    kernel launches in `bev_pool_pooled.launches`. Forward only:
+    `bev_pool_presorted_pooled` differentiates it."""
+    if torch.is_grad_enabled() and (depth.requires_grad or feat.requires_grad):
         raise NotImplementedError("bev_pool_pooled is forward-only")
-    if vals.device.type == "cpu":
-        return bev_pool_pooled_plain(vals, rk_sorted, num_cells, pool_r, out_dtype)
-    if vals.device.type != "cuda":
-        raise ValueError(f"bev_pool_pooled: vals on {vals.device}")
-    if out_dtype != vals.dtype:
-        raise TypeError(f"bev_pool_pooled takes float32/bfloat16 vals and out of the "
-                        f"same dtype, got {vals.dtype} -> {out_dtype}")
-    _check_stream("bev_pool_pooled", vals, rk_sorted, vals.device, out_dtype)
+    if depth.dtype != feat.dtype or feat.dtype not in _DTYPE_CODE:
+        raise TypeError(f"bev_pool_pooled takes float32/bfloat16 depth and feat of one dtype, "
+                        f"got {depth.dtype} and {feat.dtype}")
     if num_cells % pool_r:
         raise ValueError(f"num_cells {num_cells} is not a multiple of pool_r {pool_r}")
+    dev = feat.device
+    if dev.type == "cpu":
+        return bev_pool_pooled_plain(presorted_vals(depth, feat, order), rk_sorted, num_cells,
+                                     pool_r, feat.dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"bev_pool_pooled: feat on {dev}")
+    for name, t in (("depth", depth), ("order", order), ("ranks", rk_sorted)):
+        if t.device != dev:
+            raise ValueError(f"bev_pool_pooled: {name} on {t.device}, feat on {dev}")
+    if (depth.dim() != 5 or feat.dim() != 5 or depth.shape[:2] != feat.shape[:2]
+            or depth.shape[3:] != feat.shape[2:4]):
+        raise ValueError(f"bev_pool_pooled: depth {tuple(depth.shape)} and feat "
+                         f"{tuple(feat.shape)} do not match")
+    if (order.dtype != torch.int32 or rk_sorted.dtype != torch.int32 or order.dim() != 1
+            or rk_sorted.shape != order.shape):
+        raise ValueError(f"bev_pool_pooled: order {tuple(order.shape)} {order.dtype} and ranks "
+                         f"{tuple(rk_sorted.shape)} {rk_sorted.dtype} must be int32 (P_cap,)")
+    if not (order.is_contiguous() and rk_sorted.is_contiguous()):
+        raise ValueError("bev_pool_pooled needs contiguous order and ranks")
+    C = feat.shape[-1]
+    if C > 1024:
+        raise ValueError(f"bev_pool_pooled takes C <= 1024 channels, got {C}")
+    feat = feat.contiguous()  # 8.65 MB at the flagship; a no-op for the lift's output
+    if feat.data_ptr() % 16:
+        raise ValueError("bev_pool_pooled needs 16-byte aligned feat")
+    weights, pix_stride, bin_stride = _weight_strides(depth)
     n_coarse = num_cells // pool_r
-    out = torch.empty(n_coarse, vals.shape[1], dtype=out_dtype, device=vals.device)
+    out = torch.empty(n_coarse, C, dtype=feat.dtype, device=dev)
     starts = _cell_starts(rk_sorted, num_cells, pool_r)
-    fn = native.load("bev_pool_pooled").veon_bev_pool_pooled
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(vals.data_ptr(), rk_sorted.data_ptr(), starts.data_ptr(), out.data_ptr(),
-             n_coarse, vals.shape[1], pool_r, _DTYPE_CODE[vals.dtype],
-             torch.cuda.current_stream(vals.device).cuda_stream)
+    long_list = torch.empty(n_coarse + 65, dtype=torch.int32, device=dev)  # the kernel's scratch
+    fn = native.function("bev_pool_pooled", "veon_bev_pool_pooled", _POOLED_ARGTYPES)
+    err = fn(feat.data_ptr(), weights.data_ptr(), pix_stride, bin_stride, order.data_ptr(),
+             rk_sorted.data_ptr(), starts.data_ptr(), out.data_ptr(), long_list.data_ptr(),
+             n_coarse, C, depth.shape[2], pool_r, _DTYPE_CODE[feat.dtype],
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"bev_pool_pooled launch failed: cudaError {err}")
     bev_pool_pooled.launches += 1
@@ -155,10 +202,9 @@ def _launch_sorted(name, streams, num_cells: int):
     out = torch.empty(num_cells, C, dtype=dtype, device=dev)
     starts = [_cell_starts(rk, num_cells) for _vals, rk in streams]
     ptrs = [p for (vals, _rk), s in zip(streams, starts) for p in (vals.data_ptr(), s.data_ptr())]
-    lib = native.load("bev_pool_sorted")
-    fn = lib.veon_bev_pool_sorted if len(streams) == 1 else lib.veon_bev_pool_sorted2
-    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 1) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    symbol = "veon_bev_pool_sorted" if len(streams) == 1 else "veon_bev_pool_sorted2"
+    fn = native.function("bev_pool_sorted", symbol, (ctypes.c_void_p,) * (len(ptrs) + 1)
+                         + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
     err = fn(*ptrs, out.data_ptr(), num_cells, C, _DTYPE_CODE[dtype],
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -299,7 +345,8 @@ def bev_pool(depth, feat, ranks, grid_size, valid_cap: Optional[float] = None):
 
 
 class _PresortedPooled(torch.autograd.Function):
-    """bev_pool_pallas_presorted_pooled: kernel #1 forward; the backward
+    """bev_pool_pallas_presorted_pooled: kernel #1 forward (gather fused
+    in, no (P_cap, C) rows in device memory); the backward
     recomputes the fine grid with kernel #2, routes the cotangent through
     the group max (ties split evenly, as jnp.max's VJP) and applies the
     gather adjoints."""
@@ -309,9 +356,8 @@ class _PresortedPooled(torch.autograd.Function):
         B, C = depth.shape[0], feat.shape[-1]
         nx, ny, nz = grid_size
         dz, dy, dx = ds
-        vals = presorted_vals(depth, feat, order).contiguous()
-        out = bev_pool_pooled(vals, rk_pooled, _num_cells(feat, grid_size), dz * dy * dx,
-                              feat.dtype)
+        out = bev_pool_pooled(depth, feat, order, rk_pooled, _num_cells(feat, grid_size),
+                              dz * dy * dx)
         ctx.save_for_backward(depth, feat, order, rk_pooled, ranks)
         ctx.grid_size, ctx.pool_r = grid_size, dz * dy * dx
         return out.reshape(B, nz // dz, ny // dy, nx // dx, C)

@@ -1,7 +1,8 @@
 """Fused LayerNorm -> Dense (counterpart of `veon_tpu/ops/fused_ln.py`).
 
 `ln_dense` launches the hand-written CUDA kernel `csrc/ln_dense.cu` (TPU
-kernel `_ln_dense_kernel`, entry `ln_dense_pallas`) on a CUDA tensor, runs
+kernel `_ln_dense_kernel`, entry `ln_dense_pallas`; bf16 on `wgmma` fed by
+a TMA ring, fp32 as a register-blocked SIMT product) on a CUDA tensor, runs
 `ln_dense_plain` on a CPU tensor and raises on anything else; it counts
 its launches in `ln_dense.launches`. As in the JAX package, the model does
 not call it: it keeps the plain LayerNorm + Dense pair, and this is a
@@ -18,6 +19,8 @@ import torch
 from . import native
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (ctypes.c_float, ctypes.c_int,
+                                                             ctypes.c_void_p)
 
 
 def ln_dense_plain(x, ln_scale, ln_bias, w, b, eps: float = 1e-5):
@@ -36,8 +39,8 @@ def ln_dense_plain(x, ln_scale, ln_bias, w, b, eps: float = 1e-5):
 
 def ln_dense(x, ln_scale, ln_bias, w, b, eps: float = 1e-5):
     """x (M, C) -> LayerNorm (fp32 internals, affine) -> @ w (C, N) + b, in
-    x's dtype. C and N multiples of 128; x and w of one dtype, float32 or
-    bfloat16."""
+    x's dtype. C and N multiples of 128, C <= 1024; x and w of one dtype,
+    float32 or bfloat16."""
     if x.device.type == "cpu":
         return ln_dense_plain(x, ln_scale, ln_bias, w, b, eps)
     if x.device.type != "cuda":
@@ -46,8 +49,8 @@ def ln_dense(x, ln_scale, ln_bias, w, b, eps: float = 1e-5):
         raise ValueError(f"ln_dense: x {tuple(x.shape)} and w {tuple(w.shape)} do not chain")
     M, C = x.shape
     N = w.shape[1]
-    if C % 128 or N % 128:
-        raise ValueError(f"ln_dense: C = {C} and N = {N} must be multiples of 128")
+    if C % 128 or N % 128 or C > 1024:
+        raise ValueError(f"ln_dense: C = {C} and N = {N} must be multiples of 128, C <= 1024")
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
         raise TypeError(f"ln_dense takes float32/bfloat16 x and w of one dtype, got "
                         f"{x.dtype} and {w.dtype}")
@@ -64,10 +67,7 @@ def ln_dense(x, ln_scale, ln_bias, w, b, eps: float = 1e-5):
     out = torch.empty(M, N, dtype=x.dtype, device=x.device)
     if M == 0:
         return out
-    fn = native.load("ln_dense").veon_ln_dense
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                                                 ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.function("ln_dense", "veon_ln_dense", _ARGTYPES)
     err = fn(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w.data_ptr(),
              vecs[2].data_ptr(), out.data_ptr(), M, C, N, eps, _DTYPE_CODE[x.dtype],
              torch.cuda.current_stream(x.device).cuda_stream)

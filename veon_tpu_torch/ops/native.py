@@ -4,7 +4,9 @@ Each source is compiled by `nvcc` for sm_90a into a shared library with a
 plain C interface, loaded with ctypes. Libraries are built at first use
 from the checkout's sources only, into `build/veon_tpu_torch/` beside the
 package, and named by a hash of the source and flags, so an edited source
-is rebuilt and a stale library is never loaded.
+is rebuilt and a stale library is never loaded. No library links more
+than the CUDA runtime: `ln_dense.cu` takes the driver's TMA descriptor
+encoder through the runtime's driver entry point.
 """
 
 from __future__ import annotations
@@ -73,3 +75,13 @@ def load(name: str) -> ctypes.CDLL:
     """The built library `name`, compiling it on first use."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def function(name: str, symbol: str, argtypes: tuple):
+    """The C entry `symbol` of library `name` with its argument types set
+    once (it returns a cudaError_t as int), so a launch pays no setup."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
