@@ -37,7 +37,23 @@ Phases; any failed check raises, so the exit code is non-zero:
      around exactly those calls (kernel #1 once per call); then where a
      steady call's time goes (per-tower, temporal fusion and warp device
      time, one profiled call) and one batched F=2 forward on two frames
-     without the presorted lift (kernel #3 once per frame).
+     without the presorted lift (kernel #3 once per frame);
+ 10. the text tower: the tiny one card vs CPU, then VEON-B's at full
+     width in fp32 building the nuscenes_brief x vild classifier (924
+     sequences of 77 tokens) on the card and on the CPU, with its time;
+ 11. F=1 socket serving, a main path: a `TensorServer` with the handler
+     of `cli/main.py` `build_serve_handler` at VEON-B bf16 answers 3
+     requests with text tokens through `TensorClient` (kernel #1 once per
+     request), each equal to `FrameServer` and `retrieval_map` on the same
+     inputs, the first request of a second connection, 5 requests from a
+     client in a process of its own (the round trip without the server's
+     GIL), where a steady request's time goes by stage, then one raw-uint8
+     request;
+ 12. T=2 socket serving, a main path: 4 streaming requests of the drive,
+     equal to a direct `TemporalSession` on the same frames, a reset, a
+     second connection refused, and a steady request's stages;
+ 13. metrics: the served grid's confusion histogram on the card against
+     numpy's, on seeded labels, and its mIoU.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Without a card it exits non-zero and prints no result.
@@ -47,11 +63,14 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, the fp32 rate outside the
@@ -912,6 +931,396 @@ def _event():
     return ev
 
 
+def expect_launches(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def text_tower_phase():
+    """The text tower in fp32 (TF32 off), seeded weights, card vs CPU: the
+    tiny one on four prompts (one cut at 77 tokens), unit-norm embeddings
+    within 1e-5; then VEON-B's (512 wide, 8 heads, 12 layers) building the
+    nuscenes_brief x vild classifier, 66 prompts x 14 templates = 924
+    sequences of 77 tokens, on each device, its unit rows (the classifier
+    over exp(logit_scale)) within 5e-5 (fp32, 12 layers summed in other
+    orders). Build times on the host clock: the card's first build (cold)
+    and a second one, and the CPU's."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import build_text_tower
+    from veon_tpu_torch.nn.text import (ClipTokenizer, build_vocabulary, get_templates,
+                                        text_classifier)
+
+    tiny = presets.veon_tiny_test()
+    tokens = torch.from_numpy(ClipTokenizer().tokenize(
+        ["a photo of a car.", "There is a large traffic cone in the scene", "", "x " * 90]))
+    with torch.no_grad():
+        want = build_text_tower(tiny, "cpu", seed=2)(tokens)
+        got = build_text_tower(tiny, "cuda", seed=2)(tokens.cuda())
+    tiny_err = (got.cpu() - want).abs().max().item()
+    if not tiny_err <= 1e-5:
+        raise AssertionError(f"tiny text tower: card vs CPU {tiny_err:.3g} > 1e-5")
+    cfg = presets.veon_b(compute_dtype="bfloat16")
+    prompts, _refl = build_vocabulary(cfg.vocabulary)
+    n_seq = len(prompts) * len(get_templates(cfg.san.template_set))
+    rng = np.random.default_rng(11)
+    bg = rng.standard_normal((1, cfg.san.clip_embed_dim)).astype(np.float32)
+    logit_scale = np.float32(np.log(1 / 0.07))
+    ms, ovw = {}, {}
+    for name, d in (("card_cold", "cuda"), ("card", "cuda"), ("cpu", "cpu")):
+        tower = build_text_tower(cfg, d, seed=0)
+        t = time.perf_counter()
+        ovw[name] = text_classifier(cfg, prompts, tower, bg, logit_scale, require_bpe=False)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t) * 1e3
+        del tower
+    scale = float(np.exp(logit_scale))
+    w = ovw["card"].cpu()
+    if tuple(w.shape) != (len(prompts) + 1, cfg.san.clip_embed_dim) or not torch.isfinite(w).all():
+        raise AssertionError(f"veon_b classifier {tuple(w.shape)} not finite or misshaped")
+    err = ((w - ovw["cpu"]).abs().max() / scale).item()
+    if not err <= 5e-5:
+        raise AssertionError(f"veon_b text classifier: card vs CPU {err:.3g} of a unit row > 5e-5")
+    log(f"text tower: tiny card vs CPU max abs diff {tiny_err:.3g}; veon_b fp32 classifier "
+        f"nuscenes_brief x {cfg.san.template_set} ({n_seq} sequences of 77 tokens): build "
+        f"{ms['card']:.3f} ms on the card ({ms['card_cold']:.3f} cold), {ms['cpu']:.3f} ms on "
+        f"the CPU; card vs CPU max abs diff {err:.3g} of a unit row")
+    return dict(tiny_max_abs_diff=tiny_err, sequences=n_seq, build_ms=ms["card"],
+                build_cold_ms=ms["card_cold"], cpu_build_ms=ms["cpu"], unit_row_max_abs_diff=err)
+
+
+def socket_dir():
+    """A fresh directory for a unix socket whose path fits AF_UNIX's 108
+    bytes: under the temporary directory, else under build/ (relative)."""
+    d = tempfile.mkdtemp(prefix="veon")
+    if len(os.path.join(d, "s.sock")) > 100:
+        shutil.rmtree(d)
+        os.makedirs("build", exist_ok=True)
+        d = os.path.relpath(tempfile.mkdtemp(prefix="veon", dir="build"))
+    return d
+
+
+def serve_args(num_temporal, raw_uint8=False):
+    """The parsed command line `serve --preset veon_b --num-temporal N
+    [--raw-uint8]` of `veon_tpu_torch.cli.main` (bf16, on the card)."""
+    from veon_tpu_torch.cli.main import parser
+
+    argv = ["serve", "--preset", "veon_b", "--num-temporal", str(num_temporal)]
+    return parser().parse_args(argv + (["--raw-uint8"] if raw_uint8 else []))
+
+
+def _nbytes(tensors):
+    return sum(np.asarray(v).nbytes for v in tensors.values())
+
+
+def _served(client, kernels, req, what):
+    """One request through the socket: (response, round-trip ms, kernel
+    #1 launches it made); any other kernel's launch raises."""
+    before = {k: fn.launches for k, fn in kernels.items()}
+    t = time.perf_counter()
+    out = client.infer(**req)
+    rt = (time.perf_counter() - t) * 1e3
+    made = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    expect_launches(made, {k: int(k == "bev_pool_pooled") for k in made}, what)
+    return out, rt, made["bev_pool_pooled"]
+
+
+# A client in a process of its own: argv socket path, request .npz, request
+# count, response .npy; sends the request that many times on one
+# connection, saves the last response's pred and prints the round trips and
+# server_ms as JSON.
+_CLIENT_PROCESS = r"""
+import json, sys, time
+import numpy as np
+from veon_tpu_torch.serve.client import TensorClient
+req = dict(np.load(sys.argv[2]))
+rt, sms = [], []
+with TensorClient(sys.argv[1]) as c:
+    for _ in range(int(sys.argv[3])):
+        t = time.perf_counter()
+        out = c.infer(**req)
+        rt.append((time.perf_counter() - t) * 1e3)
+        sms.append(float(out["server_ms"][0]))
+np.save(sys.argv[4], out["pred"])
+print(json.dumps({"round_trip_ms": rt, "server_ms": sms}))
+"""
+
+
+def client_process(socket_path, req, n, d):
+    """`n` requests of `req` from a client in another process, as a real
+    client is (the in-process client shares the server's GIL): (round trips
+    ms, server_ms, the last pred, kernel #1 launches they made; any other
+    kernel's launch raises). Loading the request is outside the timings."""
+    npz, npy = os.path.join(d, "req.npz"), os.path.join(d, "pred.npy")
+    np.savez(npz, **req)
+    kernels = reset_launches()
+    run = subprocess.run([sys.executable, "-c", _CLIENT_PROCESS, socket_path, npz, str(n), npy],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"client process failed ({run.returncode}): {run.stderr[-2000:]}")
+    made = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(made, {k: n * int(k == "bev_pool_pooled") for k in made}, "client process")
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    return res["round_trip_ms"], res["server_ms"], np.load(npy), made["bev_pool_pooled"]
+
+
+def request_stages(handler, req):
+    """Where a steady request's time goes, from two direct handler calls in
+    this thread (the second one read): host clock per stage, each ended by
+    a synchronize: the request's tensors to the card ("to_card"), the text
+    tower pass, the model with the merge and fusion rule ("infer"), and the
+    rest of the call (the dtype check, the response's copy back)."""
+    marks = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            marks[name] = marks.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+            return r
+        return call
+
+    target = handler.server if handler.server is not None else handler.session
+    tower = handler.text_tower
+    handler._tensor = timed("to_card", handler._tensor)
+    handler.text_tower = timed("text_tower", tower)
+    target.infer = timed("infer", target.infer)
+    try:
+        for _ in range(2):
+            marks.clear()
+            t = time.perf_counter()
+            handler(**req)
+            total = (time.perf_counter() - t) * 1e3
+    finally:  # _tensor and infer were instance attributes shadowing the methods
+        del handler._tensor, target.infer
+        handler.text_tower = tower
+    marks["rest"] = total - sum(marks.values())
+    marks["total"] = total
+    return marks
+
+
+def frame_server_phase():
+    """F=1 socket serving at VEON-B bf16: the `cli/main.py` handler on a
+    `TensorServer` answers 3 requests of the example frame, each with the
+    text tokens of another prompt, through `TensorClient`, every launch
+    count read around each request (kernel #1 once, no other kernel). Each
+    `pred` is bit-equal to `FrameServer` on the same inputs and classifier
+    and each `retrieval` to `retrieval_map` of its direct outputs and the
+    tower's embedding of the same tokens. A client in a process of its own
+    then sends 5 such requests (the last pred checked too). Then a
+    raw-uint8 server takes one request of seeded uint8 frames, equal to the
+    same model on those frames normalized first."""
+    from veon_tpu_torch.cli.main import build_serve_handler
+    from veon_tpu_torch.cli.shapes import example_batch_full
+    from veon_tpu_torch.data.transforms import normalize_in_graph
+    from veon_tpu_torch.model.veon import retrieval_map
+    from veon_tpu_torch.nn.text import ClipTokenizer
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.serve.server import TensorServer
+
+    t0 = time.perf_counter()
+    handler, required, _expect, exclusive = build_serve_handler(serve_args(1))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    imgs, depth_imgs, _ = example_batch_full(handler.cfg, device="cpu")
+    frame = {"imgs": imgs.numpy(), "depth_imgs": depth_imgs.numpy()}
+    prompts = ["a parked red car", "a pedestrian crossing the road", "a traffic cone"]
+    tokens = [ClipTokenizer().tokenize([p]) for p in prompts]
+    d = socket_dir()
+    srv = TensorServer(handler, os.path.join(d, "s.sock"), required=required, exclusive=exclusive)
+    srv.start()
+    outs, rt, per_req = [], [], []
+    try:
+        with TensorClient(srv.socket_path) as c:
+            kernels = reset_launches()
+            for i, tok in enumerate(tokens):
+                out, ms, n = _served(c, kernels, dict(frame, text_tokens=tok), f"F=1 request {i}")
+                outs.append(out)
+                rt.append(ms)
+                per_req.append(n)
+        # the first request of a second connection (its own server thread),
+        # after the first connection closed
+        with TensorClient(srv.socket_path) as c:
+            second = _served(c, reset_launches(), dict(frame, text_tokens=tokens[0]),
+                             "second connection")[0]
+        proc_rt, proc_server_ms, proc_pred, proc_launches = client_process(
+            srv.socket_path, dict(frame, text_tokens=tokens[0]), 5, d)
+    finally:
+        srv.stop()
+    stages = request_stages(handler, dict(frame, text_tokens=tokens[0]))
+    server = handler.server
+    x, xd = imgs.cuda(), depth_imgs.cuda()
+    want_pred = server(x, xd).to(torch.uint8).cpu().numpy()
+    with torch.no_grad():
+        feat = server.outputs(x, xd)["feat_occ"]
+        retr_diff = []
+        for out, tok in zip(outs, tokens):
+            te = handler.text_tower(torch.from_numpy(tok).cuda())[0]
+            want_r = retrieval_map(feat, te).cpu().numpy()
+            retr_diff.append(float(np.abs(out["retrieval"] - want_r).max()))
+            if not np.array_equal(out["retrieval"], want_r):
+                raise AssertionError(f"served retrieval differs from retrieval_map by {retr_diff[-1]}")
+            if not np.array_equal(out["pred"], want_pred):
+                raise AssertionError(f"served pred differs from FrameServer in "
+                                     f"{int((out['pred'] != want_pred).sum())} voxels")
+    if not np.array_equal(proc_pred, want_pred):
+        raise AssertionError("the client process's pred differs from FrameServer")
+    del feat
+    server_ms = [float(o["server_ms"][0]) for o in outs]
+    req_bytes = _nbytes(dict(frame, text_tokens=tokens[0]))
+    resp_bytes = _nbytes(outs[0])
+    grid = outs[-1]["pred"]
+    if grid.shape != (1,) + tuple(handler.cfg.grid.size) or int(grid.max()) > 17:
+        raise AssertionError(f"served grid {grid.shape}, max class {int(grid.max())}")
+    del handler, server, srv
+    torch.cuda.empty_cache()
+
+    raw, required, _expect, exclusive = build_serve_handler(serve_args(1, raw_uint8=True))
+    rng = np.random.default_rng(13)
+    u8 = {"imgs": rng.integers(0, 256, imgs.shape, dtype=np.uint8),
+          "depth_imgs": rng.integers(0, 256, depth_imgs.shape, dtype=np.uint8)}
+    srv = TensorServer(raw, os.path.join(d, "s.sock"), required=required, exclusive=exclusive)
+    srv.start()
+    try:
+        with TensorClient(srv.socket_path) as c:
+            kernels = reset_launches()
+            out_u8, rt_u8, n_u8 = _served(c, kernels, u8, "raw-uint8 request")
+    finally:
+        srv.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    want_u8 = raw.server(normalize_in_graph(torch.from_numpy(u8["imgs"]).cuda(), "clipsan"),
+                         normalize_in_graph(torch.from_numpy(u8["depth_imgs"]).cuda(),
+                                            raw.cfg.data.depth_norm_method))
+    if not np.array_equal(out_u8["pred"], want_u8.to(torch.uint8).cpu().numpy()):
+        raise AssertionError("raw-uint8 served pred differs from the model on normalized frames")
+    u8_bytes = _nbytes(u8)
+    del raw, srv
+    torch.cuda.empty_cache()
+    log(f"F=1 server: a second connection's first request server_ms "
+        f"{float(second['server_ms'][0]):.3f}; a steady request in this thread, ms by stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    log(f"F=1 server, a client in its own process ({len(proc_rt)} requests): server_ms "
+        f"{[round(v, 3) for v in proc_server_ms]}, round trip ms {[round(v, 3) for v in proc_rt]}, "
+        f"round trip - server_ms {[round(a - b, 3) for a, b in zip(proc_rt, proc_server_ms)]}, "
+        f"kernel #1 launches {proc_launches}, last pred bit-equal to FrameServer")
+    log(f"F=1 server veon_b bf16 ({len(tokens)} requests with text tokens): setup {setup_s:.1f} s, "
+        f"server_ms {[round(v, 3) for v in server_ms]}, round trip ms {[round(v, 3) for v in rt]}, "
+        f"kernel #1 launches per request {per_req}, request {req_bytes} B, response {resp_bytes} B; "
+        f"pred bit-equal to FrameServer, retrieval equal to retrieval_map (max diff {max(retr_diff)}); "
+        f"raw-uint8 request: server_ms {float(out_u8['server_ms'][0]):.3f}, round trip "
+        f"{rt_u8:.3f} ms, request {u8_bytes} B, kernel #1 launches {n_u8}, pred equal")
+    return grid, dict(setup_s=setup_s, server_ms=server_ms, round_trip_ms=rt,
+                      launches_per_request=per_req, request_bytes=req_bytes,
+                      response_bytes=resp_bytes,
+                      second_connection_server_ms=float(second["server_ms"][0]),
+                      stage_ms=stages, client_process=dict(
+                          server_ms=proc_server_ms, round_trip_ms=proc_rt,
+                          launches=proc_launches), raw_uint8=dict(
+                          server_ms=float(out_u8["server_ms"][0]), round_trip_ms=rt_u8,
+                          request_bytes=u8_bytes, launches=n_u8))
+
+
+def streaming_server_phase():
+    """T=2 socket serving at VEON-B bf16: 4 requests of the seeded
+    drive (text tokens on every other one) through the exclusive server,
+    kernel #1 once per request, each `pred` and `retrieval` equal to a
+    direct `TemporalSession` on the same model, rig and frames; then a
+    reset frame, and a second connection refused while the first is open."""
+    from veon_tpu_torch.cli.main import build_serve_handler
+    from veon_tpu_torch.cli.shapes import example_drive
+    from veon_tpu_torch.nn.text import ClipTokenizer
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.serve.server import TensorServer
+    from veon_tpu_torch.serve.streaming import TemporalSession
+
+    t0 = time.perf_counter()
+    handler, required, _expect, exclusive = build_serve_handler(serve_args(2))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _rig, drive = example_drive(handler.cfg, 4, device="cpu", seed=0)
+    tok = ClipTokenizer().tokenize(["a bus stopped at the kerb"])
+    reqs = [dict({k: v.numpy() for k, v in r.items()}, **({"text_tokens": tok} if i % 2 else {}))
+            for i, r in enumerate(drive)]
+    d = socket_dir()
+    srv = TensorServer(handler, os.path.join(d, "s.sock"), required=required, exclusive=exclusive)
+    srv.start()
+    outs, rt, per_req = [], [], []
+    try:
+        with TensorClient(srv.socket_path) as c:
+            kernels = reset_launches()
+            for i, r in enumerate(reqs):
+                out, ms, n = _served(c, kernels, r, f"T=2 request {i}")
+                outs.append(out)
+                rt.append(ms)
+                per_req.append(n)
+            ok = c.infer(reset=np.int32(1))
+            if int(ok["ok"][0]) != 1 or handler.session.calls != 0:
+                raise AssertionError("reset frame did not zero the session")
+            refused = None
+            with TensorClient(srv.socket_path) as c2:
+                try:
+                    c2.infer(reset=np.int32(1))
+                except (RuntimeError, OSError) as e:
+                    refused = f"{type(e).__name__}: {e}"
+            if refused is None or ("busy" not in refused and "RuntimeError" in refused):
+                raise AssertionError(f"second connection not refused: {refused}")
+    finally:
+        srv.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    stages = request_stages(handler, reqs[1])
+    s = handler.session
+    direct = TemporalSession(s.model, s.ov_weight, s.membership, rig_metas=s.rig_metas)
+    for i, (r, out) in enumerate(zip(reqs, outs)):
+        te = None
+        if "text_tokens" in r:
+            with torch.no_grad():
+                te = handler.text_tower(torch.from_numpy(r["text_tokens"]).cuda())[0]
+        want = direct.infer(torch.from_numpy(r["imgs"]).cuda(),
+                            torch.from_numpy(r["depth_imgs"]).cuda(),
+                            {"lidarego2global": torch.from_numpy(r["lidarego2global"]).cuda()},
+                            text_embed=te)
+        if not np.array_equal(out["pred"], want["pred"].cpu().numpy()):
+            raise AssertionError(f"T=2 request {i}: pred differs from the direct session")
+        if te is not None and not np.array_equal(out["retrieval"], want["retrieval"].cpu().numpy()):
+            raise AssertionError(f"T=2 request {i}: retrieval differs from the direct session")
+        if ("retrieval" in out) != (te is not None):
+            raise AssertionError(f"T=2 request {i}: retrieval without text or missing")
+    server_ms = [float(o["server_ms"][0]) for o in outs]
+    del handler, s, direct, srv
+    torch.cuda.empty_cache()
+    log(f"T=2 server veon_b bf16 ({len(reqs)} requests of the drive): setup {setup_s:.1f} s, server_ms "
+        f"{[round(v, 3) for v in server_ms]}, round trip ms {[round(v, 3) for v in rt]}, kernel #1 "
+        f"launches per request {per_req}, request {_nbytes(reqs[0])} B, response "
+        f"{_nbytes(outs[0])} B; pred and retrieval equal to a direct TemporalSession; reset ok; "
+        f"second connection refused ({refused}); a steady request in this thread, ms by stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    return dict(setup_s=setup_s, server_ms=server_ms, round_trip_ms=rt, stage_ms=stages,
+                launches_per_request=per_req, request_bytes=_nbytes(reqs[0]),
+                response_bytes=_nbytes(outs[0]), refused=refused)
+
+
+def metrics_phase(grid):
+    """The served F=1 grid against seeded labels (0..17, a tenth 255) and a
+    seeded camera mask: `confusion_hist` on the card equal to the numpy
+    histogram of `MIoUMetric`, and the mIoU."""
+    from veon_tpu_torch.eval import MIoUMetric, confusion_hist, per_class_iou
+
+    rng = np.random.default_rng(12)
+    gt = rng.integers(0, 18, grid.shape).astype(np.uint8)
+    gt[rng.random(grid.shape) < 0.1] = 255
+    mask = (rng.random(grid.shape) < 0.7).astype(np.uint8)
+    hist = confusion_hist(*(torch.from_numpy(a).cuda() for a in (grid, gt, mask)))
+    metric = MIoUMetric()
+    metric.add_batch(grid, gt, mask_camera=mask)
+    if hist.device.type != "cuda" or not np.array_equal(hist.cpu().numpy(), metric.hist):
+        raise AssertionError("confusion_hist on the card differs from the numpy histogram")
+    miou = float(np.nanmean(per_class_iou(metric.hist)[:17]) * 100)
+    log(f"metrics: confusion_hist on the card equals numpy's over {int(metric.hist.sum())} voxels; "
+        f"mIoU of the served grid against seeded labels {miou:.4f}")
+    return dict(voxels=int(metric.hist.sum()), miou=miou)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -953,6 +1362,11 @@ def main():
     temporal_where = temporal_breakdown(session, reqs)
     batched = batched_temporal_phase(session, reqs)
     del session, reqs
+    torch.cuda.empty_cache()
+    text = text_tower_phase()
+    grid, serve_f1 = frame_server_phase()
+    serve_t2 = streaming_server_phase()
+    metrics = metrics_phase(grid)
 
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]),
             "bev_pool_sorted": (sorted_res["full_bf16"],
@@ -974,7 +1388,8 @@ def main():
                    "train": train, "small_parity_max_abs": small, "main_path": main_res,
                    "breakdown": where, "ln_dense": ln, "temporal_small_parity": temporal_small,
                    "temporal_main_path": temporal, "temporal_breakdown": temporal_where,
-                   "batched_temporal": batched,
+                   "batched_temporal": batched, "text_tower": text, "serve_f1": serve_f1,
+                   "serve_t2": serve_t2, "metrics": metrics,
                    "builds": {k: v["seconds"] for k, v in builds.items()}},
                   f, indent=1)
     for r, _ in rows.values():

@@ -3,7 +3,8 @@ the JAX reference at `veon_tiny_test` size with perturbed weights, and the
 conversions that carry arrays between the two frameworks as numpy.
 
 Also holds the port's import-hygiene test: the port package and
-`chip_smoke.py` import no JAX, flax or `veon_tpu`.
+`chip_smoke.py` import no JAX, flax or `veon_tpu`, and neither `ml_dtypes`
+nor `sklearn`, which the card's machine lacks.
 """
 
 import ast
@@ -101,7 +102,7 @@ def port_tiny_cfg():
     return presets.veon_tiny_test()
 
 
-_BANNED = ("jax", "flax", "veon_tpu")
+_BANNED = ("jax", "flax", "veon_tpu", "ml_dtypes", "sklearn")
 
 
 def _imports(path):
@@ -114,6 +115,7 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_flax_or_reference():
+    """Nor anything else in _BANNED."""
     files = sorted((REPO / "veon_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)

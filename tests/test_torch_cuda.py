@@ -221,3 +221,33 @@ def test_ln_dense_rejects_what_it_does_not_take(card):
     x, s, sh, w, b = _ln_inputs(card, 4, 1152, 128, torch.float32)
     with pytest.raises(ValueError, match="C <= 1024"):
         fused_ln.ln_dense(x, s, sh, w, b)
+
+
+def test_text_tower_on_card_matches_cpu(card):
+    """The tiny text tower (fp32, TF32 off) on the card against the CPU,
+    same seeded weights: unit-norm embeddings within 1e-5."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import build_text_tower
+    from veon_tpu_torch.nn.text import ClipTokenizer
+
+    cfg = presets.veon_tiny_test()
+    tokens = torch.from_numpy(ClipTokenizer().tokenize(
+        ["a photo of a car.", "There is a large traffic cone in the scene", "", "x " * 90]))
+    with torch.no_grad():
+        want = build_text_tower(cfg, "cpu", seed=2)(tokens)
+        got = build_text_tower(cfg, card, seed=2)(tokens.to(card))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def test_confusion_hist_on_card_matches_cpu(card):
+    from veon_tpu_torch.eval import confusion_hist
+
+    rng = np.random.default_rng(4)
+    pred = torch.from_numpy(rng.integers(0, 18, (200, 200, 16)).astype(np.uint8))
+    gt = torch.from_numpy(rng.integers(0, 18, (200, 200, 16)).astype(np.uint8))
+    gt[torch.from_numpy(rng.random((200, 200, 16)) < 0.1)] = 255
+    mask = torch.from_numpy((rng.random((200, 200, 16)) < 0.7).astype(np.uint8))
+    got = confusion_hist(pred.to(card), gt.to(card), mask.to(card))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), confusion_hist(pred, gt, mask))

@@ -9,6 +9,7 @@ as nested dicts of numpy arrays and inverts the layout rules of
   ConvTranspose kernel (kh, kw, in, out), applied unflipped by flax
                                       -> weight (in, out, kh, kw), flipped
   LayerNorm / BatchNorm scale         -> weight
+  Embed embedding (rows, features)    -> weight, as is
   BatchNorm batch_stats mean / var    -> running_mean / running_var
   nn.scan stacks (leading layer axis) -> ModuleList index
 The port names its modules as the flax tree does, with one numeric path
@@ -17,6 +18,10 @@ consumed; with strict=True every port entry must be filled too, while
 strict=False converts a partial tree (a grads or optimizer-moment tree of
 the trainable params, or the batch_stats alone) into the entries it
 covers. A leftover JAX leaf always raises.
+
+`load_text_tower` fills a `CLIPTextEncoder` from the text-tower tree of
+`veon_tpu/ckpt/convert.py` `convert_text_tower` (the `extras["text_tower"]`
+params, scan-stacked `resblocks/block/...`), strict on both sides.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.layers import BatchNorm, Conv2d, Conv3d, ConvTranspose2d, Dense, LayerNorm
+from ..nn.layers import BatchNorm, Conv2d, Conv3d, ConvTranspose2d, Dense, Embed, LayerNorm
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -48,6 +53,8 @@ def _source(owner: nn.Module, leaf: str) -> Tuple[str, str]:
         return "params", "scale"
     if leaf == "weight" and isinstance(owner, (Dense, Conv2d, Conv3d, ConvTranspose2d)):
         return "params", "kernel"
+    if leaf == "weight" and isinstance(owner, Embed):
+        return "params", "embedding"
     return "params", leaf
 
 
@@ -107,3 +114,10 @@ def load_from_jax(model: nn.Module, variables: Mapping) -> nn.Module:
     """Fill `model` from JAX `variables` (strict on both sides)."""
     model.load_state_dict(state_dict_from_jax(model, variables), strict=True)
     return model
+
+
+def load_text_tower(tower: nn.Module, params: Mapping) -> nn.Module:
+    """Fill a `CLIPTextEncoder` from the JAX text tower's params tree
+    (token_embedding, positional_embedding, resblocks, ln_final,
+    text_projection), strict on both sides."""
+    return load_from_jax(tower, {"params": params})

@@ -1,8 +1,8 @@
 """Dataclass configuration tree of the PyTorch port.
 
 A copy of the fields of `veon_tpu/configs/base.py` that the serving
-forwards (F=1 and temporal) and the stage-2 train step read (the port
-imports nothing of `veon_tpu`). ZoeDepth, text-tower and data-loader
+forwards (F=1 and temporal), the text tower and the stage-2 train step
+read (the port imports nothing of `veon_tpu`). ZoeDepth and data-loader
 fields come with the slices that port those parts.
 """
 
@@ -74,6 +74,7 @@ class SANConfig:
     feature_last_layer_idx: int = 9
     rec_downsample_method: str = "max"
     rec_cross_attn: bool = True
+    template_set: str = "vild"
 
     side_width: int = 240
     side_depth: int = 8
@@ -90,6 +91,13 @@ class SANConfig:
     attn_bias_mlp_channels: int = 256
     attn_bias_mlp_num_layers: int = 3
     rescale_attn_bias: bool = True
+
+    # text tower (CLIP text transformer)
+    text_width: int = 512
+    text_heads: int = 8
+    text_layers: int = 12
+    text_context_length: int = 77
+    text_vocab_size: int = 49408
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +152,7 @@ class DepthConfig:
 class DataConfig:
     num_cams: int = 6
     input_size: Tuple[int, int] = (512, 1408)
+    depth_norm_method: str = "depthanythingv2"
     depth_input_size: Tuple[int, int] = (256, 704)
     # DA-V2 lower-bound resize target (multiple of 14)
     dav2_target: int = 252

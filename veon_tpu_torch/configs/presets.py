@@ -35,6 +35,7 @@ def veon_tiny_test(num_temporal: int = 1) -> VeonConfig:
             side_width=16, side_depth=2, side_heads=2, num_queries=8,
             fusion_map=((0, 0), (1, 3)), side_pretrain_grid=(4, 4),
             attn_bias_heads=2, attn_bias_embed_channels=8, attn_bias_mlp_channels=8,
+            text_width=32, text_heads=2, text_layers=2, text_context_length=77,
         ),
         hsa=HSAConfig(
             dim=16, clip_dim=32, mlp_dim=16, patch_shape=(8, 8), num_heads=2,

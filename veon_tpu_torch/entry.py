@@ -30,10 +30,22 @@ the synthetic batch of `veon_tpu/utils/train_bench.py` build_train_setup):
 The batch carries depth_imgs, so the frozen depth tower runs in the step
 (the flagship's no-depth-cache recipe); the lift is the banded one unless
 cfg.lss_banded is False.
+
+Socket serving with free-text retrieval (counterpart of `veon_tpu serve`,
+`veon_tpu/cli/main.py` `_build_serve_handler`):
+
+    handler, required, expect, exclusive = serve_entry()   # veon_b, bf16
+    srv = TensorServer(handler, "/tmp/veon.sock", required, exclusive)
+    srv.start()                                # serve/server.py
+    TensorClient("/tmp/veon.sock").infer(imgs=..., depth_imgs=...,
+                                         text_tokens=...)  # pred, retrieval
+
+With a cfg of num_temporal > 1 the handler holds a `TemporalSession`.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -41,44 +53,69 @@ import torch
 
 from . import resolve_device
 from .cli.shapes import example_batch, example_batch_full, example_depth_imgs, example_drive
-from .ckpt.from_jax import load_from_jax
+from .ckpt.from_jax import load_from_jax, load_text_tower
 from .configs import presets
 from .configs.base import VeonConfig
+from .data.transforms import normalize_in_graph
 from .geometry.frustum import sensor2keyego_chain
-from .model.veon import VeonModel, fusion_rule
+from .model.veon import VeonModel, fusion_rule, retrieval_map
 from .nn import text as text_mod
 from .nn.layers import init_random_
+from .nn.vit import CLIPTextEncoder
 from .serve.streaming import TemporalSession
 from .train.step import AdamW, TrainState, create_train_state, make_train_step
 
 
 class FrameServer:
     """A built model with its rig precompute, vocabulary merge and
-    open-vocabulary weights; calling it serves one frame."""
+    open-vocabulary weights; calling it serves one frame.
+    `normalize=(img_method, depth_method)` makes `infer` take raw uint8 HWC
+    frames and normalize them on the device (`data/transforms.py`)."""
 
-    def __init__(self, model: VeonModel, metas, ov_weight, membership):
+    def __init__(self, model: VeonModel, metas, ov_weight, membership, normalize=None):
         self.model, self.metas = model, metas
         self.ov_weight, self.membership = ov_weight, membership
+        self.normalize = normalize
 
     @torch.no_grad()
     def outputs(self, imgs, depth_imgs):
         """The model's raw fp32 outputs (bin_occ, feat_occ, sem_occ_raw, ...)."""
         return self.model.full_forward(imgs, depth_imgs, self.metas, self.ov_weight)
 
-    @torch.no_grad()
-    def __call__(self, imgs, depth_imgs):
-        out = self.outputs(imgs, depth_imgs)
+    def _classes(self, out):
         merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1)
         return fusion_rule(merged, out["bin_occ"])
+
+    @torch.no_grad()
+    def __call__(self, imgs, depth_imgs):
+        """The (B, X, Y, Z) int32 class grid of normalized frames."""
+        return self._classes(self.outputs(imgs, depth_imgs))
+
+    @torch.no_grad()
+    def infer(self, imgs, depth_imgs, text_embed=None) -> Dict[str, torch.Tensor]:
+        """The served response: `pred`, the uint8 class grid, and with
+        text_embed (C,) the free-text `retrieval` map (B, X, Y, Z)."""
+        if self.normalize is not None:
+            imgs = normalize_in_graph(imgs, self.normalize[0])
+            depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
+        out = self.outputs(imgs, depth_imgs)
+        resp = {"pred": self._classes(out).to(torch.uint8)}
+        if text_embed is not None:
+            resp["retrieval"] = retrieval_map(out["feat_occ"], text_embed)
+        return resp
+
+
+def _no_tf32(dev):
+    if dev.type == "cuda":
+        # fp32 stays fp32 where a config asks for it: no TF32 in convs or matmuls
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _build_model(cfg, dev, seed, variables) -> VeonModel:
     """The model on `dev` with weights from `variables` (a JAX variables
     tree as numpy arrays) when given, else from a seeded random init."""
-    if dev.type == "cuda":
-        # fp32 stays fp32 where a config asks for it: no TF32 in convs or matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    _no_tf32(dev)
     model = VeonModel(cfg, device=dev)
     if variables is not None:
         load_from_jax(model, variables)
@@ -87,11 +124,12 @@ def _build_model(cfg, dev, seed, variables) -> VeonModel:
     return model
 
 
-def _ov_weight(cfg: VeonConfig, dev):
-    """The numpy-seeded open-vocabulary matrix of the JAX entry and the
-    vocabulary's merge matrix."""
+def _ov_weight(cfg: VeonConfig, dev, seed: int = 1):
+    """A numpy-seeded open-vocabulary matrix standing in for the text
+    classifier, and the vocabulary's merge matrix. Seed 1 is the JAX
+    entry's (`__graft_entry__.entry`), seed 0 the JAX CLI's placeholder."""
     prompts, refl = text_mod.build_vocabulary(cfg.vocabulary)
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     ovw = torch.from_numpy(rng.standard_normal(
         (len(prompts) + 1, cfg.san.clip_embed_dim)).astype(np.float32)).to(dev)
     return ovw, text_mod.merge_matrix(refl)
@@ -183,3 +221,160 @@ def train_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
     state = create_train_state(model, tx)
     return (Trainer(model, state, make_train_step(model, tx, cfg, membership), membership),
             train_batch(cfg, device=dev))
+
+
+def build_text_tower(cfg: VeonConfig, device="cuda", seed: int = 0,
+                     params: Optional[Mapping] = None) -> CLIPTextEncoder:
+    """The CLIP text tower of `cfg` on `device`, in fp32 even where the
+    model computes in bf16 (the JAX CLI builds it without a dtype). Weights
+    from `params` (the JAX tower's params tree as numpy) when given, else a
+    seeded random init made on the CPU, so one seed gives one tower on
+    every device."""
+    dev = resolve_device(device)
+    _no_tf32(dev)
+    s = cfg.san
+    tower = CLIPTextEncoder(s.text_width, s.text_heads, s.text_layers, s.clip_embed_dim,
+                            s.text_vocab_size, s.text_context_length)
+    if params is not None:
+        load_text_tower(tower, params)
+    else:
+        init_random_(tower, torch.Generator().manual_seed(seed))
+    return tower.to(dev)
+
+
+class ServeHandler:
+    """The request handler of the socket server (counterpart of the one
+    `veon_tpu/cli/main.py` `_build_serve_handler` builds); called with a
+    request's tensors by name, it returns the response as numpy arrays.
+
+    F=1 (`server`, a `FrameServer`): imgs (1, 1, N, H, W, 3) and depth_imgs
+    -> pred (1, X, Y, Z) uint8. Streaming (`session`, a `TemporalSession`):
+    one frame per request plus lidarego2global (1, 4, 4), in time order; a
+    request holding `reset` zeroes the cache and answers {"ok": 1}. Either
+    mode: text_embed (C,) or text_tokens (1, 77) int32 (through the text
+    tower) adds `retrieval` (1, X, Y, Z). Frames must be uint8 with
+    raw_uint8 (normalized on the device), else fp32.
+
+    Every call computes on the handler's one worker thread, whichever
+    thread calls it (the server calls from each connection's own thread):
+    PyTorch keeps cuDNN's execution-plan cache and the cuBLAS handles per
+    thread, so a request computed on a new thread builds them again (on an
+    H100 a connection's first request took 0.7-1.8 s against ~0.15 s
+    steady). Grad mode is per thread too: the worker runs under no_grad."""
+
+    def __init__(self, cfg: VeonConfig, tower: CLIPTextEncoder,
+                 server: Optional[FrameServer] = None,
+                 session: Optional[TemporalSession] = None, raw_uint8: bool = False):
+        self.cfg, self.text_tower = cfg, tower
+        self.server, self.session, self.raw_uint8 = server, session, raw_uint8
+        self.device = tower.positional_embedding.device
+        self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="veon-serve")
+
+    def _tensor(self, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _check_img_dtype(self, req):
+        """Refuse frames of the other mode's dtype: normalized fp32 frames
+        into a raw-uint8 server, or raw uint8 into a float one, would both
+        give well-formed garbage."""
+        want = "uint8" if self.raw_uint8 else "float32"
+        for k in ("imgs", "depth_imgs"):
+            x = req[k]
+            got = str(x.dtype).replace("torch.", "") if isinstance(x, torch.Tensor) \
+                else str(np.asarray(x).dtype)
+            if got != want:
+                mode = "--raw-uint8" if self.raw_uint8 else "normalized-float"
+                raise TypeError(f"{k} dtype {got} does not match this server's {mode} "
+                                f"mode (expected {want})")
+
+    def _embed(self, req):
+        """The request's text embedding (C,) fp32, or None without text."""
+        if "text_embed" in req:
+            return self._tensor(req["text_embed"]).to(torch.float32)
+        if "text_tokens" in req:
+            return self.text_tower(self._tensor(req["text_tokens"]).to(torch.int32))[0]
+        return None
+
+    def __call__(self, **req) -> Dict[str, np.ndarray]:
+        return self._worker.submit(self._compute, req).result()
+
+    @torch.no_grad()
+    def _compute(self, req) -> Dict[str, np.ndarray]:
+        if self.session is not None:
+            if "reset" in req:
+                self.session.reset()
+                return {"ok": np.int32(1)}
+            missing = [k for k in ("imgs", "depth_imgs", "lidarego2global") if k not in req]
+            if missing:
+                raise KeyError(f"missing tensors: {missing} (or send a `reset` frame)")
+        self._check_img_dtype(req)
+        te = self._embed(req)
+        imgs, depth_imgs = self._tensor(req["imgs"]), self._tensor(req["depth_imgs"])
+        if self.session is not None:
+            out = self.session.infer(imgs, depth_imgs,
+                                     {"lidarego2global": self._tensor(req["lidarego2global"])},
+                                     text_embed=te)
+        else:
+            out = self.server.infer(imgs, depth_imgs, text_embed=te)
+        resp = {"pred": out["pred"].cpu().numpy()}
+        if te is not None:
+            resp["retrieval"] = out["retrieval"].cpu().numpy()
+        return resp
+
+
+def serve_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
+                variables: Optional[Mapping] = None, text_tower: Optional[Mapping] = None,
+                bg_embed=None, logit_scale=None, bpe_path: Optional[str] = None,
+                raw_uint8: bool = False):
+    """(handler, required request keys, expectation string, exclusive) of
+    the socket server for `cfg` (default: veon_b in bf16), warmed on the
+    example frames (mid-gray uint8 ones with raw_uint8) with an empty
+    prompt's tokens.
+
+    Weights from `variables` and the text tower's from `text_tower`
+    (JAX trees as numpy) when given, else seeded stand-ins. The classifier
+    is the text tower's over the vocabulary (`nn/text.py`
+    `text_classifier`) when the tower's params come with `bg_embed` (1, C)
+    and `logit_scale`, else the JAX CLI's placeholder, N(0, 1) from
+    numpy's default_rng(0). cfg.num_temporal > 1 serves a streaming
+    session, one connection at a time (exclusive)."""
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = presets.veon_b(compute_dtype="bfloat16")
+    model = _build_model(cfg, dev, seed, variables)
+    tower = build_text_tower(cfg, dev, seed, text_tower)
+    ovw, membership = _ov_weight(cfg, dev, seed=0)
+    if text_tower is not None and bg_embed is not None and logit_scale is not None:
+        prompts, _refl = text_mod.build_vocabulary(cfg.vocabulary)
+        ovw = text_mod.text_classifier(cfg, prompts, tower, bg_embed, logit_scale, bpe_path)
+    imgs, depth_imgs, metas = example_batch_full(cfg, device=dev)
+    no_text = text_mod.ClipTokenizer().tokenize([""])  # warms the text path too
+    norm = ("clipsan", cfg.data.depth_norm_method) if raw_uint8 else None
+    if raw_uint8:
+        imgs = torch.full(imgs.shape, 127, dtype=torch.uint8, device=dev)
+        depth_imgs = torch.full(depth_imgs.shape, 127, dtype=torch.uint8, device=dev)
+    if cfg.num_temporal > 1:
+        rig = {k: metas[k][:, 0:1] for k in ("sensor2egos", "ego2globals", "intrins",
+                                             "post_rots", "post_trans")}
+        rig["bda"] = metas["bda"]
+        session = TemporalSession(model, ovw, membership, rig_metas=_with_presort(model, rig),
+                                  normalize=norm)
+        handler = ServeHandler(cfg, tower, session=session, raw_uint8=raw_uint8)
+        imgs, depth_imgs = imgs[:, 0:1], depth_imgs[:, 0:1]
+        handler(imgs=imgs, depth_imgs=depth_imgs, lidarego2global=metas["lidarego2global"],
+                text_tokens=no_text)
+        session.reset()
+        required = ()  # reset frames carry no frames; the handler checks the keys
+        expect = (f"expected per-frame imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "
+                  f"{tuple(depth_imgs.shape)}, lidarego2global (1, 4, 4); optional "
+                  f"text_embed/text_tokens for retrieval")
+    else:
+        server = FrameServer(model, _with_presort(model, metas), ovw, membership, normalize=norm)
+        handler = ServeHandler(cfg, tower, server=server, raw_uint8=raw_uint8)
+        handler(imgs=imgs, depth_imgs=depth_imgs, text_tokens=no_text)
+        required = ("imgs", "depth_imgs")
+        expect = (f"expected imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "
+                  f"{tuple(depth_imgs.shape)}; optional text_embed/text_tokens for retrieval")
+    return handler, required, expect, cfg.num_temporal > 1

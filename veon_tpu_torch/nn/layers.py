@@ -47,6 +47,19 @@ class Dense(nn.Module):
                         _cast(self.bias, self.dtype))
 
 
+class Embed(nn.Module):
+    """flax nn.Embed: rows of `weight` (num_embeddings, features) looked up
+    by integer ids, returned in `dtype`."""
+
+    def __init__(self, num_embeddings: int, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def forward(self, ids):
+        return F.embedding(ids.long(), self.weight).to(self.dtype)
+
+
 class Conv2d(nn.Module):
     """flax nn.Conv on (B, H, W, C); weight stored (out, in, kh, kw)."""
 
@@ -263,16 +276,19 @@ class FeedForward(nn.Module):
 
 
 _NORMAL_002 = {"class_embedding", "positional_embedding", "proj_kernel",
-               "pos_embed", "query_embed", "query_pos_embed"}
+               "pos_embed", "query_embed", "query_pos_embed", "text_projection"}
 
 
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random initialisation standing in for real weights, with the
     flax initialisers' scales: fan-in-scaled normal kernels, zero biases,
-    unit norm scales and LayerScales, N(0, 0.02) embeddings."""
+    unit norm scales and LayerScales, N(0, 0.02) embeddings, token
+    embeddings N(0, 1/features) as flax's Embed."""
     for m in module.modules():
         w = getattr(m, "weight", None)
+        if isinstance(m, Embed):
+            w.copy_(torch.randn(w.shape, generator=generator, device=w.device) / math.sqrt(w.shape[1]))
         if isinstance(m, (Dense, Conv2d, Conv3d, ConvTranspose2d)):
             fan_in = w[0].numel() if not isinstance(m, ConvTranspose2d) else w.shape[0]
             w.copy_(torch.randn(w.shape, generator=generator, device=w.device) / math.sqrt(fan_in))

@@ -1,6 +1,6 @@
 """ViT cores (counterpart of `veon_tpu/nn/vit.py`): the CLIP visual trunk
-and recognition head, timm-style blocks (side adapter), and the DINOv2
-trunk. Batch-first tokens (B, L, C); images channel-last (B, H, W, 3).
+and recognition head, the CLIP text tower, timm-style blocks (side
+adapter), and the DINOv2 trunk. Batch-first tokens (B, L, C); images channel-last (B, H, W, 3).
 
 The JAX side runs identical blocks under `nn.scan` with stacked params;
 here a stack is a `ModuleList` of per-layer bodies named as the scan body's
@@ -16,7 +16,7 @@ from torch import nn
 
 from ..ops.resize import adaptive_max_pool2d, resize_bicubic, resize_bicubic_scaled
 from .attention import FusedQKVAttention, SimpleAttention
-from .layers import Conv2d, LayerNorm, TransformerMLP, quick_gelu
+from .layers import Conv2d, Embed, LayerNorm, TransformerMLP, quick_gelu
 
 
 def stack(n: int, **make) -> nn.ModuleList:
@@ -260,3 +260,33 @@ class DinoV2Trunk(nn.Module):
             xn = self.norm(x)
             outs.append((xn[:, 1:], xn[:, 0]))
         return outs
+
+
+class CLIPTextEncoder(nn.Module):
+    """CLIP text tower: tokens (B, context_length) int -> L2-normalized
+    (B, out_dim) embeddings. Token embedding plus positional embedding, the
+    blocks under a causal -inf mask, ln_final, the row at the first
+    maximum token id (EOT), then the plain `text_projection` matrix."""
+
+    def __init__(self, width: int, heads: int, num_layers: int, out_dim: int,
+                 vocab_size: int = 49408, context_length: int = 77, dtype=torch.float32):
+        super().__init__()
+        self.token_embedding = Embed(vocab_size, width, dtype=dtype)
+        self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))
+        self.resblocks = stack(num_layers, block=lambda: CLIPBlock(width, heads, dtype=dtype))
+        self.ln_final = LayerNorm(width)
+        self.text_projection = nn.Parameter(torch.zeros(width, out_dim))
+
+    def forward(self, tokens, normalize: bool = True):
+        x = self.token_embedding(tokens)
+        x = x + self.positional_embedding.to(x.dtype)[None]
+        L = x.shape[1]
+        mask = torch.full((L, L), float("-inf"), device=x.device).triu(1)[None, None]
+        for body in self.resblocks:
+            x = body["block"](x, attn_mask=mask)
+        x = self.ln_final(x)
+        x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(-1)]
+        x = x @ self.text_projection.to(x.dtype)
+        if normalize:
+            x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        return x
