@@ -42,7 +42,7 @@ Phases; any failed check raises, so the exit code is non-zero:
      width in fp32 building the nuscenes_brief x vild classifier (924
      sequences of 77 tokens) on the card and on the CPU, with its time;
  11. F=1 socket serving, a main path: a `TensorServer` with the handler
-     of `cli/main.py` `build_serve_handler` at VEON-B bf16 answers 3
+     of `cli/main.py` `build_serve_handler` at VEON-B fp32 answers 3
      requests with text tokens through `TensorClient` (kernel #1 once per
      request), each equal to `FrameServer` and `retrieval_map` on the same
      inputs, the first request of a second connection, 5 requests from a
@@ -53,13 +53,34 @@ Phases; any failed check raises, so the exit code is non-zero:
      equal to a direct `TemporalSession` on the same frames, a reset, a
      second connection refused, and a steady request's stages;
  13. metrics: the served grid's confusion histogram on the card against
-     numpy's, on seeded labels, and its mIoU.
+     numpy's, on seeded labels, and its mIoU;
+ 14. weights day at the tiny preset: reference-layout checkpoint files
+     (`tests/test_torch_mirror.py`: the semantic dump with the text tower,
+     DA-V2 with LoRA r=16, a learned BPE merges file) loaded through the
+     CLI's handler on the card and on the CPU, every key read but the
+     ignored ones, the outputs within phase 5's tolerance;
+ 15. weights day at full VEON-B width in fp32, a main path: full-width
+     files read, converted and loaded (each timed), the classifier built
+     from the loaded text tower, `selftest --weights-dir` (five step lines,
+     kernel #3 once in its forward), then a `TensorServer` with the handler
+     of `serve --load-from --depth-load-from --bpe-path` answering 3
+     requests with text tokens (kernel #1 once per request), each equal to
+     `FrameServer` on the loaded model;
+ 16. the new presets at full width: VEON-L in fp32 from converted
+     full-width ViT-L files, 2 frames (kernel #1 once per frame), then
+     `veon_b_fast` and `veon_b_fast2` in bf16, a cold and 3 warm frames;
+ 17. bf16 against fp32 at full VEON-B width on phase 15's converted
+     weights: flip rate, feat_occ cosine and occupancy MAD within the CPU
+     battery's bounds.
+Phases 11-12 serve through the CLI's handler, which computes in the
+preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Without a card it exits non-zero and prints no result.
 """
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1001,7 +1022,7 @@ def socket_dir():
 
 def serve_args(num_temporal, raw_uint8=False):
     """The parsed command line `serve --preset veon_b --num-temporal N
-    [--raw-uint8]` of `veon_tpu_torch.cli.main` (bf16, on the card)."""
+    [--raw-uint8]` of `veon_tpu_torch.cli.main` (on the card, in the preset's fp32)."""
     from veon_tpu_torch.cli.main import parser
 
     argv = ["serve", "--preset", "veon_b", "--num-temporal", str(num_temporal)]
@@ -1101,7 +1122,7 @@ def request_stages(handler, req):
 
 
 def frame_server_phase():
-    """F=1 socket serving at VEON-B bf16: the `cli/main.py` handler on a
+    """F=1 socket serving at VEON-B fp32: the `cli/main.py` handler on a
     `TensorServer` answers 3 requests of the example frame, each with the
     text tokens of another prompt, through `TensorClient`, every launch
     count read around each request (kernel #1 once, no other kernel). Each
@@ -1204,7 +1225,7 @@ def frame_server_phase():
         f"{[round(v, 3) for v in proc_server_ms]}, round trip ms {[round(v, 3) for v in proc_rt]}, "
         f"round trip - server_ms {[round(a - b, 3) for a, b in zip(proc_rt, proc_server_ms)]}, "
         f"kernel #1 launches {proc_launches}, last pred bit-equal to FrameServer")
-    log(f"F=1 server veon_b bf16 ({len(tokens)} requests with text tokens): setup {setup_s:.1f} s, "
+    log(f"F=1 server veon_b fp32 ({len(tokens)} requests with text tokens): setup {setup_s:.1f} s, "
         f"server_ms {[round(v, 3) for v in server_ms]}, round trip ms {[round(v, 3) for v in rt]}, "
         f"kernel #1 launches per request {per_req}, request {req_bytes} B, response {resp_bytes} B; "
         f"pred bit-equal to FrameServer, retrieval equal to retrieval_map (max diff {max(retr_diff)}); "
@@ -1222,7 +1243,7 @@ def frame_server_phase():
 
 
 def streaming_server_phase():
-    """T=2 socket serving at VEON-B bf16: 4 requests of the seeded
+    """T=2 socket serving at VEON-B fp32: 4 requests of the seeded
     drive (text tokens on every other one) through the exclusive server,
     kernel #1 once per request, each `pred` and `retrieval` equal to a
     direct `TemporalSession` on the same model, rig and frames; then a
@@ -1289,7 +1310,7 @@ def streaming_server_phase():
     server_ms = [float(o["server_ms"][0]) for o in outs]
     del handler, s, direct, srv
     torch.cuda.empty_cache()
-    log(f"T=2 server veon_b bf16 ({len(reqs)} requests of the drive): setup {setup_s:.1f} s, server_ms "
+    log(f"T=2 server veon_b fp32 ({len(reqs)} requests of the drive): setup {setup_s:.1f} s, server_ms "
         f"{[round(v, 3) for v in server_ms]}, round trip ms {[round(v, 3) for v in rt]}, kernel #1 "
         f"launches per request {per_req}, request {_nbytes(reqs[0])} B, response "
         f"{_nbytes(outs[0])} B; pred and retrieval equal to a direct TemporalSession; reset ok; "
@@ -1319,6 +1340,367 @@ def metrics_phase(grid):
     log(f"metrics: confusion_hist on the card equals numpy's over {int(metric.hist.sum())} voxels; "
         f"mIoU of the served grid against seeded labels {miou:.4f}")
     return dict(voxels=int(metric.hist.sum()), miou=miou)
+
+
+# The reference's checkpoint keys that no converter reads: BatchNorm
+# counters, the text tower's causal-mask buffer, and refinenet4's
+# resConfUnit1 (built by the DPT head, never run: the top fusion block has
+# no skip input)
+IGNORED_SUFFIXES = ("num_batches_tracked",)
+IGNORED_KEYS = ("ov_classifier.attn_mask",)
+IGNORED_PREFIXES = ("depth_head.scratch.refinenet4.resConfUnit1.",)
+
+
+class _ReadKeys(dict):
+    """A state_dict that records every key a converter reads."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.read = set()
+
+    def __getitem__(self, k):
+        self.read.add(k)
+        return super().__getitem__(k)
+
+    def __contains__(self, k):
+        hit = super().__contains__(k)
+        if hit:
+            self.read.add(k)
+        return hit
+
+
+def unread_keys(cfg, paths):
+    """The keys of the checkpoint files at `paths` ("san", "depth") that
+    neither converter reads, the ignored ones left out; (count of keys,
+    unread keys)."""
+    from veon_tpu_torch.ckpt import convert as C
+
+    san = _ReadKeys(C.load_torch_state_dict(paths["san"]))
+    depth = _ReadKeys(C.load_torch_state_dict(paths["depth"]))
+    C.convert_san_semantic(san, cfg)
+    C.convert_dav2(depth, cfg.depth)
+    unread = sorted(k for sd in (san, depth) for k in sd if k not in sd.read
+                    and not k.endswith(IGNORED_SUFFIXES) and k not in IGNORED_KEYS
+                    and not k.startswith(IGNORED_PREFIXES))
+    return len(san) + len(depth), unread
+
+
+def mirror_weights(cfg, root):
+    """Reference-layout checkpoint files for `cfg` under `root` (a
+    semantic dump with the text tower, a DA-V2 dump with LoRA adapters of
+    rank 16, a learned BPE merges file: `tests/test_torch_mirror.py`);
+    (paths, seconds, bytes)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from test_torch_mirror import write_weights_dir
+
+    t = time.perf_counter()
+    paths = write_weights_dir(cfg, root)
+    return paths, time.perf_counter() - t, {k: os.path.getsize(p) for k, p in paths.items()}
+
+
+def weights_args(preset, paths, device="cuda"):
+    """The parsed command line `serve --preset P --load-from SAN
+    --depth-load-from DEPTH --bpe-path BPE --device D`."""
+    from veon_tpu_torch.cli.main import parser
+
+    return parser().parse_args(["serve", "--preset", preset, "--load-from", paths["san"],
+                                "--depth-load-from", paths["depth"], "--bpe-path", paths["bpe"],
+                                "--device", device])
+
+
+def near_ties(out, membership, margin=1e-3):
+    """Voxels (B, X, Y, Z) whose class decision is a near-tie: top-2 merged
+    logits or the two occupancy logits closer than `margin`."""
+    from veon_tpu_torch.nn.text import merge_classes_max
+
+    merged = merge_classes_max(out["sem_occ_raw"], membership, axis=-1)
+    top2 = merged.topk(2, dim=-1).values
+    b = out["bin_occ"]
+    tie = ((top2[..., 0] - top2[..., 1]) <= margin) | ((b[..., 0] - b[..., 1]).abs() <= margin)
+    return tie.permute(0, 3, 2, 1)
+
+
+def phase_base():
+    """Device bytes allocated when a phase starts, after what earlier phases
+    left for the collector is freed: its peaks are read above this."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def weights_tiny_phase():
+    """Weights day at the tiny preset: mirror checkpoint files (the
+    semantic dump with `ov_classifier`, DA-V2 with LoRA r=16) loaded through
+    the CLI's `build_serve_handler` on the card and on the CPU (plain
+    versions); every key read but the ignored ones; the card's voxel
+    outputs and served retrieval within phase 5's 1e-3 of the CPU's, the
+    served class grids equal off near-ties (margin 1e-3)."""
+    from veon_tpu_torch.cli.main import build_serve_handler
+    from veon_tpu_torch.cli.shapes import example_batch_full
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.model.veon import VOXEL_OUTPUTS
+    from veon_tpu_torch.nn.text import ClipTokenizer
+
+    cfg = presets.veon_tiny_test()
+    root = tempfile.mkdtemp(prefix="veon_tiny_ckpts")
+    try:
+        paths, _s, _b = mirror_weights(cfg, root)
+        n_keys, unread = unread_keys(cfg, paths)
+        if unread:
+            raise AssertionError(f"tiny checkpoint keys no converter reads: {unread[:8]}")
+        handlers = {d: build_serve_handler(weights_args("veon_tiny_test", paths, d))[0]
+                    for d in ("cpu", "cuda")}
+        tokens = ClipTokenizer(paths["bpe"]).tokenize(["a parked red car"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    imgs, depth_imgs, _ = example_batch_full(cfg, device="cpu")
+    req = {"imgs": imgs.numpy(), "depth_imgs": depth_imgs.numpy(), "text_tokens": tokens}
+    served = {d: h(**req) for d, h in handlers.items()}
+    cpu, gpu = handlers["cpu"].server, handlers["cuda"].server
+    want, got = cpu.outputs(imgs, depth_imgs), gpu.outputs(imgs.cuda(), depth_imgs.cuda())
+    worst = 0.0
+    for k in VOXEL_OUTPUTS:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3, atol=1e-3, msg=k)
+        worst = max(worst, (got[k].cpu() - want[k]).abs().max().item())
+    torch.testing.assert_close(torch.from_numpy(served["cuda"]["retrieval"]),
+                               torch.from_numpy(served["cpu"]["retrieval"]), rtol=1e-3, atol=1e-3)
+    retr = float(np.abs(served["cuda"]["retrieval"] - served["cpu"]["retrieval"]).max())
+    differ = served["cuda"]["pred"] != served["cpu"]["pred"]
+    ties = near_ties(want, cpu.membership).numpy()
+    if (differ & ~ties).any():
+        raise AssertionError(f"tiny weights day: {int((differ & ~ties).sum())} served classes "
+                             "differ between card and CPU off near-ties")
+    log(f"weights day, tiny: {n_keys} checkpoint keys, all read but the ignored; card vs CPU max "
+        f"abs diff {worst:.3g} over {VOXEL_OUTPUTS}, retrieval {retr:.3g}, served classes differ "
+        f"in {int(differ.sum())} voxels ({int(ties.sum())} near-ties)")
+    return dict(keys=n_keys, max_abs_diff=worst, retrieval_max_abs_diff=retr,
+                pred_differ=int(differ.sum()), near_ties=int(ties.sum()))
+
+
+def weights_main_path(frame_ms):
+    """Weights day at full VEON-B width (fp32, the preset's dtype), a main
+    path: full-width reference-layout files (SAN ViT-B with the text tower,
+    DA-V2-L with LoRA r=16), every key read but the ignored ones; the
+    files read and converted, the model loaded (timed apart); `selftest
+    --weights-dir` with its five step lines, kernel #3 once in its forward
+    and no other launch; then a `TensorServer` with the handler of `serve
+    --load-from --depth-load-from --bpe-path` answering 3 requests with text
+    tokens, kernel #1 once per request, each `pred` equal to `FrameServer`
+    on the same loaded model and the classifier equal to `text_classifier`
+    on the loaded tower. Returns the converted variables for phase 17."""
+    import contextlib
+    import io
+
+    from veon_tpu_torch.cli.main import build_serve_handler, load_checkpoints, main as cli_main
+    from veon_tpu_torch.cli.shapes import example_batch_full
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import build_model, build_text_tower
+    from veon_tpu_torch.nn.text import ClipTokenizer, build_vocabulary, text_classifier
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.serve.server import TensorServer
+
+    cfg = presets.veon_b()
+    base = phase_base()
+    root = tempfile.mkdtemp(prefix="veon_b_ckpts")
+    d = socket_dir()
+    try:
+        paths, write_s, nbytes = mirror_weights(cfg, root)
+        n_keys, unread = unread_keys(cfg, paths)
+        if unread:
+            raise AssertionError(f"veon_b checkpoint keys no converter reads: {unread[:8]}")
+        t = time.perf_counter()
+        variables, extras = load_checkpoints(cfg, paths["san"], paths["depth"])
+        convert_s = time.perf_counter() - t
+        t = time.perf_counter()
+        model = build_model(cfg, torch.device("cuda"), 0, variables)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        del model
+        tower = build_text_tower(cfg, "cuda", params=extras["text_tower"])
+        prompts, _refl = build_vocabulary(cfg.vocabulary)
+        classifier_ms = []
+        for _ in range(2):  # cold, then warm
+            t = time.perf_counter()
+            ovw = text_classifier(cfg, prompts, tower, extras["bg_embed"], extras["logit_scale"],
+                                  paths["bpe"])
+            torch.cuda.synchronize()
+            classifier_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.empty_cache()
+
+        kernels = reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            drill = cli_main(["selftest", "--preset", "veon_b", "--weights-dir", root])
+        drill_launches = {k: fn.launches for k, fn in kernels.items()}
+        expect_launches(drill_launches, {k: int(k == "bev_pool_sorted2") for k in kernels},
+                        "selftest --weights-dir")
+        steps = [ln for ln in out.getvalue().splitlines() if ln.startswith("[")]
+        if [s[:5] for s in steps] != ["[1/5]", "[2/5]", "[4/5]", "[5/5]"] or "WARNING" in out.getvalue():
+            raise AssertionError(f"selftest --weights-dir step lines: {steps}")
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        handler, required, _expect, exclusive = build_serve_handler(weights_args("veon_b", paths))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        tok = ClipTokenizer(paths["bpe"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if handler.cfg.compute_dtype != "float32":
+        raise AssertionError(f"the CLI serves {handler.cfg.compute_dtype}, not the preset's fp32")
+    if not torch.equal(handler.server.ov_weight, ovw):
+        raise AssertionError("served classifier differs from text_classifier on the loaded tower")
+    imgs, depth_imgs, _ = example_batch_full(cfg, device="cpu")
+    frame = {"imgs": imgs.numpy(), "depth_imgs": depth_imgs.numpy()}
+    texts = ["a parked red car", "a pedestrian crossing the road", "a traffic cone"]
+    srv = TensorServer(handler, os.path.join(d, "s.sock"), required=required, exclusive=exclusive)
+    srv.start()
+    outs, rt, per_req = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with TensorClient(srv.socket_path) as c:
+            kernels = reset_launches()
+            for i, text in enumerate(texts):
+                o, ms, n = _served(c, kernels, dict(frame, text_tokens=tok.tokenize([text])),
+                                   f"weights-day request {i}")
+                outs.append(o)
+                rt.append(ms)
+                per_req.append(n)
+    finally:
+        srv.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    want = handler.server(imgs.cuda(), depth_imgs.cuda()).to(torch.uint8).cpu().numpy()
+    for i, o in enumerate(outs):
+        if not np.array_equal(o["pred"], want):
+            raise AssertionError(f"weights-day request {i}: pred differs from FrameServer in "
+                                 f"{int((o['pred'] != want).sum())} voxels")
+        if not np.isfinite(o["retrieval"]).all():
+            raise AssertionError(f"weights-day request {i}: retrieval not finite")
+    server_ms = [float(o["server_ms"][0]) for o in outs]
+    classes = np.bincount(want.reshape(-1), minlength=18).tolist()
+    del handler, srv
+    torch.cuda.empty_cache()
+    log(f"weights day veon_b fp32: files written in {write_s:.1f} s ({nbytes} B), {n_keys} keys all "
+        f"read but the ignored; read + convert {convert_s:.3f} s, load onto the card "
+        f"{load_s:.3f} s, classifier build ms {[round(v, 3) for v in classifier_ms]} (cold, warm); "
+        f"selftest --weights-dir: {len(steps)} step lines, mIoU {drill['miou']:.4f}, launches "
+        f"{drill_launches}; server setup {setup_s:.1f} s, server_ms {[round(v, 3) for v in server_ms]}, "
+        f"round trip ms {[round(v, 3) for v in rt]}, kernel #1 launches per request {per_req}, peak "
+        f"memory above the phase's start {peak / 2**30:.3f} GiB (the F=1 bf16 main path: "
+        f"{frame_ms:.3f} ms/frame); pred equal to FrameServer, classifier equal to "
+        f"text_classifier; class histogram {classes}")
+    for ln in steps:
+        log("  " + ln)
+    return variables, dict(write_s=write_s, file_bytes=nbytes, keys=n_keys, convert_s=convert_s,
+                           load_s=load_s, classifier_ms=classifier_ms, drill_miou=drill["miou"],
+                           drill_steps=steps, drill_launches=drill_launches, setup_s=setup_s,
+                           server_ms=server_ms, round_trip_ms=rt, launches_per_request=per_req,
+                           peak_bytes=peak, classes=classes)
+
+
+def _frames(server, imgs, depth_imgs, n):
+    """n frames of `server` on the card: (ms per frame, kernel launches)."""
+    kernels = reset_launches()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        grid = server(imgs, depth_imgs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    if int(grid.min()) < 0 or int(grid.max()) > 17:
+        raise AssertionError(f"class ids outside [0, 17]: {int(grid.min())}..{int(grid.max())}")
+    return times, {k: fn.launches for k, fn in kernels.items()}
+
+
+def presets_phase(frame_ms):
+    """The new presets at full width: VEON-L in fp32 loaded from converted
+    full-width mirror files (SAN ViT-L-14-336 with the text tower, DA-V2-L
+    with LoRA r=16), 2 frames with the presorted lift (kernel #1 once per
+    frame, no other kernel) and its peak memory; then `veon_b_fast` and
+    `veon_b_fast2` in bf16 with seeded weights, a cold frame then 3 warm
+    ones (kernel #1 once per frame; the warm median), beside the F=1
+    veon_b bf16 main path's ms/frame."""
+    from veon_tpu_torch.cli.main import load_checkpoints
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import entry
+
+    cfg = presets.veon_l()
+    base = phase_base()
+    root = tempfile.mkdtemp(prefix="veon_l_ckpts")
+    try:
+        paths, write_s, nbytes = mirror_weights(cfg, root)
+        n_keys, unread = unread_keys(cfg, paths)
+        if unread:
+            raise AssertionError(f"veon_l checkpoint keys no converter reads: {unread[:8]}")
+        t = time.perf_counter()
+        variables, _extras = load_checkpoints(cfg, paths["san"], paths["depth"])
+        convert_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    server, (imgs, depth_imgs) = entry(cfg, device="cuda", variables=variables)
+    del variables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    l_ms, l_launches = _frames(server, imgs, depth_imgs, 2)
+    peak = torch.cuda.max_memory_allocated() - base
+    expect_launches(l_launches, {k: 2 * int(k == "bev_pool_pooled") for k in l_launches}, "veon_l")
+    out = server.outputs(imgs, depth_imgs)
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"veon_l output {k} not finite")
+    clip_hw = tuple(out["clip_feat"].shape[2:4])
+    del server, out
+    torch.cuda.empty_cache()
+    fast = {}
+    for name in ("veon_b_fast", "veon_b_fast2"):
+        fcfg = getattr(presets, name)(compute_dtype="bfloat16")
+        server, (imgs, depth_imgs) = entry(fcfg, device="cuda")
+        ms, launches = _frames(server, imgs, depth_imgs, 4)
+        expect_launches(launches, {k: 4 * int(k == "bev_pool_pooled") for k in launches}, name)
+        fast[name] = dict(frame_ms=ms, warm_ms=statistics.median(ms[1:]), launches=launches,
+                          dav2_input=tuple(depth_imgs.shape[3:5]))
+        del server
+        torch.cuda.empty_cache()
+    launches = {k: l_launches[k] + sum(f["launches"][k] for f in fast.values()) for k in l_launches}
+    log(f"veon_l fp32 from converted files ({n_keys} keys, {nbytes} B written in {write_s:.1f} s, "
+        f"read + convert {convert_s:.3f} s): frames ms {[round(v, 3) for v in l_ms]}, peak memory "
+        f"above the phase's start {peak / 2**30:.3f} GiB, CLIP token grid {clip_hw}, launches "
+        f"{l_launches}; "
+        + "; ".join(f"{k} bf16 (DA-V2 input {v['dav2_input']}): frames ms "
+                    f"{[round(x, 3) for x in v['frame_ms']]} (warm median {v['warm_ms']:.3f})"
+                    for k, v in fast.items())
+        + f"; veon_b bf16 main path {frame_ms:.3f} ms/frame")
+    return dict(veon_l=dict(frame_ms=l_ms, peak_bytes=peak, keys=n_keys, file_bytes=nbytes,
+                            write_s=write_s, convert_s=convert_s, clip_token_grid=clip_hw,
+                            launches=l_launches), fast=fast, launches=launches)
+
+
+def precision_phase(variables):
+    """The bf16 forward against the fp32 one at full VEON-B width on the
+    card, the converted weights of phase 15 in both, the same example
+    frame: flip rate < 0.15, feat_occ cosine > 0.98, occupancy-probability
+    MAD < 0.05 (the CPU battery's bounds, `tests/test_precision.py`)."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import entry
+    from veon_tpu_torch.eval.precision import precision_battery
+
+    outs = {}
+    for dt in ("float32", "bfloat16"):
+        server, (imgs, depth_imgs) = entry(presets.veon_b(compute_dtype=dt), device="cuda",
+                                           variables=variables)
+        outs[dt] = server.outputs(imgs, depth_imgs)
+        membership = server.membership
+        del server
+        torch.cuda.empty_cache()
+    r = precision_battery(outs["float32"], outs["bfloat16"], membership)
+    log(f"bf16 vs fp32, veon_b full width, converted weights: {r} (bounds: flip < 0.15, "
+        f"cos > 0.98, MAD < 0.05)")
+    if not (r["flip_rate"] < 0.15 and r["feat_cos"] > 0.98 and r["occ_prob_mad"] < 0.05):
+        raise AssertionError(f"bf16 divergence beyond the CPU battery's bounds: {r}")
+    return r
 
 
 def main():
@@ -1367,12 +1749,23 @@ def main():
     grid, serve_f1 = frame_server_phase()
     serve_t2 = streaming_server_phase()
     metrics = metrics_phase(grid)
+    weights_tiny = weights_tiny_phase()
+    variables, weights = weights_main_path(main_res["median_ms"])
+    new_presets = presets_phase(main_res["median_ms"])
+    precision = precision_phase(variables)
+    del variables
 
-    rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]),
+    # launches on the main paths: the F=1 frames, the requests served from
+    # converted weights and the new presets' frames (#1); the train steps
+    # and the weights drill's forward (#2, #3)
+    rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
+                                + sum(weights["launches_per_request"])
+                                + new_presets["launches"]["bev_pool_pooled"]),
             "bev_pool_sorted": (sorted_res["full_bf16"],
                                 train["full"]["launches"]["bev_pool_sorted"]),
             "bev_pool_sorted2": (sorted_res["band_spray_bf16"],
-                                 train["banded"]["launches"]["bev_pool_sorted2"]),
+                                 train["banded"]["launches"]["bev_pool_sorted2"]
+                                 + weights["drill_launches"]["bev_pool_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
                          + temporal["launches"]["ln_dense"])}
@@ -1389,7 +1782,8 @@ def main():
                    "breakdown": where, "ln_dense": ln, "temporal_small_parity": temporal_small,
                    "temporal_main_path": temporal, "temporal_breakdown": temporal_where,
                    "batched_temporal": batched, "text_tower": text, "serve_f1": serve_f1,
-                   "serve_t2": serve_t2, "metrics": metrics,
+                   "serve_t2": serve_t2, "metrics": metrics, "weights_tiny": weights_tiny,
+                   "weights": weights, "presets": new_presets, "precision": precision,
                    "builds": {k: v["seconds"] for k, v in builds.items()}},
                   f, indent=1)
     for r, _ in rows.values():

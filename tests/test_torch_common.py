@@ -2,9 +2,10 @@
 the JAX reference at `veon_tiny_test` size with perturbed weights, and the
 conversions that carry arrays between the two frameworks as numpy.
 
-Also holds the port's import-hygiene test: the port package and
-`chip_smoke.py` import no JAX, flax or `veon_tpu`, and neither `ml_dtypes`
-nor `sklearn`, which the card's machine lacks.
+Also holds the port's import-hygiene test: the port package,
+`chip_smoke.py` and the mirror modules it imports import no JAX, flax or
+`veon_tpu`, and neither `ml_dtypes` nor `sklearn`, which the card's
+machine lacks.
 """
 
 import ast
@@ -115,8 +116,11 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_flax_or_reference():
-    """Nor anything else in _BANNED."""
-    files = sorted((REPO / "veon_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Nor anything else in _BANNED; nor do the two test modules that
+    `chip_smoke.py` imports on the card (the reference-layout mirrors)."""
+    files = sorted((REPO / "veon_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "test_torch_mirror.py",
+        REPO / "tests" / "ref_layout_mirror.py"]
     assert len(files) > 10
     bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in _BANNED]

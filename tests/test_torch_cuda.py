@@ -251,3 +251,29 @@ def test_confusion_hist_on_card_matches_cpu(card):
     got = confusion_hist(pred.to(card), gt.to(card), mask.to(card))
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), confusion_hist(pred, gt, mask))
+
+
+def test_weights_drill_on_card_matches_cpu(card, tmp_path, capsys):
+    """`selftest --weights-dir` on tiny reference-layout files: the card's
+    first step lines equal to the CPU's and its mIoU within 1 point (a
+    near-tie voxel may flip between summation orders), one lift-kernel
+    launch in the forward (the tiny grid's band covers every bin: the
+    one-stream kernel)."""
+    from test_torch_mirror import write_weights_dir
+
+    from veon_tpu_torch.cli.main import main
+    from veon_tpu_torch.configs import presets
+
+    write_weights_dir(presets.veon_tiny_test(), str(tmp_path))
+    argv = ["selftest", "--preset", "veon_tiny_test", "--weights-dir", str(tmp_path)]
+    want = main(argv + ["--device", "cpu"])
+    cpu = capsys.readouterr().out
+    fns = (bp.bev_pool_pooled, bp.bev_pool_sorted, bp.bev_pool_sorted2)
+    for fn in fns:
+        fn.launches = 0
+    got = main(argv + ["--device", "cuda"])
+    gpu = capsys.readouterr().out
+    assert [fn.launches for fn in fns[1:]] in ([1, 0], [0, 1]) and fns[0].launches == 0
+    lines = [ln for ln in gpu.splitlines() if ln.startswith("[")]
+    assert len(lines) == 4 and lines[:3] == [ln for ln in cpu.splitlines() if ln.startswith("[")][:3]
+    assert abs(got["miou"] - want["miou"]) <= 1.0

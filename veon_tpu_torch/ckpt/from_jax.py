@@ -19,6 +19,11 @@ strict=False converts a partial tree (a grads or optimizer-moment tree of
 the trainable params, or the batch_stats alone) into the entries it
 covers. A leftover JAX leaf always raises.
 
+`load_families` fills the top-level submodules of a model that a partial
+tree holds (the converted families of the reference's checkpoints, loaded
+over a seeded model by `cli/main.py` `checkpoint_model`), each strict on
+both sides.
+
 `load_text_tower` fills a `CLIPTextEncoder` from the text-tower tree of
 `veon_tpu/ckpt/convert.py` `convert_text_tower` (the `extras["text_tower"]`
 params, scan-stacked `resblocks/block/...`), strict on both sides.
@@ -113,6 +118,21 @@ def state_dict_from_jax(model: nn.Module, variables: Mapping, strict: bool = Tru
 def load_from_jax(model: nn.Module, variables: Mapping) -> nn.Module:
     """Fill `model` from JAX `variables` (strict on both sides)."""
     model.load_state_dict(state_dict_from_jax(model, variables), strict=True)
+    return model
+
+
+def load_families(model: nn.Module, variables: Mapping) -> nn.Module:
+    """Fill each top-level submodule of `model` ("family": depth,
+    clip_visual, ..., alignnet) named in `variables`, strict on both sides
+    within the family; families the tree does not name stay as they are.
+    A family the model lacks raises."""
+    children = dict(model.named_children())
+    families = {f for col in variables.values() for f in col}
+    unknown = sorted(families - set(children))
+    if unknown:
+        raise ValueError(f"JAX leaves not consumed by the port: families {unknown}")
+    for f in sorted(families):
+        load_from_jax(children[f], {col: tree[f] for col, tree in variables.items() if f in tree})
     return model
 
 

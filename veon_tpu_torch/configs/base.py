@@ -54,11 +54,14 @@ class GridConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
-    """DINOv2 trunk size (patch 14, 37x37 pretrain grid, MLP ratio 4 for all)."""
+    """DINOv2 trunk size (MLP ratio 4 for all): patch size, and the
+    position-embedding grid the pretrained weights were trained at."""
 
     width: int = 768
     depth: int = 12
     heads: int = 12
+    patch_size: int = 14
+    pretrain_grid: Tuple[int, int] = (37, 37)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,12 +130,17 @@ class PropagationConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DepthConfig:
-    """DepthAnythingV2 adaptor."""
+    """DepthAnythingV2 adaptor. `lora_r`/`lora_alpha` describe the adapters
+    of a depth-pretrain checkpoint; the port folds them into the base
+    weights when it loads one (`ckpt/convert.py` `merge_lora`, scale
+    lora_alpha / r), so its depth tower has none."""
 
     encoder: str = "vitl"
     features: int = 256
     out_channels: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
     max_depth: float = 80.0
+    lora_r: int = 16
+    lora_alpha: int = 1
 
     @property
     def vit(self) -> ViTConfig:

@@ -1,5 +1,5 @@
-"""Model presets of the port: the flagship VEON-B and the unit-test miniature
-(the same values as `veon_tpu/configs/presets.py`)."""
+"""Model presets of the port: VEON-B and its fast serving tiers, VEON-L and
+the unit-test miniature (the same values as `veon_tpu/configs/presets.py`)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,16 @@ import dataclasses
 
 from .base import (DataConfig, DepthConfig, GridConfig, HSAConfig,
                    PropagationConfig, SANConfig, VeonConfig)
+
+
+def san_vit_l_14_336() -> SANConfig:
+    """SAN ViT-L-14-336 (san_clip_vit_large_res4_coco_temporal.yaml)."""
+    return SANConfig(
+        clip_width=1024, clip_heads=16, clip_layers=24, clip_patch_size=14,
+        clip_embed_dim=768, clip_pretrain_grid=(24, 24), feature_last_layer_idx=18,
+        fusion_map=((0, 0), (1, 6), (2, 12), (3, 18)), attn_bias_heads=16,
+        text_width=768, text_heads=12, text_layers=12,
+    )
 
 
 def veon_b(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonConfig:
@@ -20,6 +30,35 @@ def veon_b(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonConfig:
         propagation=PropagationConfig(dim=256, layer_depth=5, clip_proj_dim=512),
         depth=DepthConfig(encoder="vitl"),
     )
+
+
+def veon_l(num_temporal: int = 1) -> VeonConfig:
+    """VEON-L: SAN ViT-L-14-336 + DAV2-L, fp32 (no compute_dtype, as in
+    JAX). Its HSA blocks take the CLIP map of one layer for the attention
+    grid and add that of another, (3, 6) / (9, 12) / (15, 18); its CLIP
+    input 256x704 gives an 18x50 token grid (patch 14 does not divide it)."""
+    return VeonConfig(
+        num_temporal=num_temporal,
+        san=san_vit_l_14_336(),
+        hsa=HSAConfig(clip_dim=1024, num_heads=16,
+                      fusion_map=((0, 3, 6), (1, 9, 12), (2, 15, 18))),
+        propagation=PropagationConfig(dim=256, layer_depth=4, clip_proj_dim=768),
+        depth=DepthConfig(encoder="vitl"),
+    )
+
+
+def veon_b_fast(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonConfig:
+    """VEON-B fast serving tier 1: DA-V2 input lower bound 224 instead of
+    252 (fewer depth-tower tokens; the same weights, the ViT interpolates
+    its position embedding). Its accuracy cost waits for real weights."""
+    cfg = veon_b(num_temporal=num_temporal, compute_dtype=compute_dtype)
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dav2_target=224))
+
+
+def veon_b_fast2(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonConfig:
+    """VEON-B fast serving tier 2: DA-V2 lower bound 196; as `veon_b_fast`."""
+    cfg = veon_b(num_temporal=num_temporal, compute_dtype=compute_dtype)
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dav2_target=196))
 
 
 def veon_tiny_test(num_temporal: int = 1) -> VeonConfig:

@@ -58,7 +58,7 @@ from .configs import presets
 from .configs.base import VeonConfig
 from .data.transforms import normalize_in_graph
 from .geometry.frustum import sensor2keyego_chain
-from .model.veon import VeonModel, fusion_rule, retrieval_map
+from .model.veon import VeonModel, fused_classes, retrieval_map
 from .nn import text as text_mod
 from .nn.layers import init_random_
 from .nn.vit import CLIPTextEncoder
@@ -82,14 +82,10 @@ class FrameServer:
         """The model's raw fp32 outputs (bin_occ, feat_occ, sem_occ_raw, ...)."""
         return self.model.full_forward(imgs, depth_imgs, self.metas, self.ov_weight)
 
-    def _classes(self, out):
-        merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1)
-        return fusion_rule(merged, out["bin_occ"])
-
     @torch.no_grad()
     def __call__(self, imgs, depth_imgs):
         """The (B, X, Y, Z) int32 class grid of normalized frames."""
-        return self._classes(self.outputs(imgs, depth_imgs))
+        return fused_classes(self.outputs(imgs, depth_imgs), self.membership)
 
     @torch.no_grad()
     def infer(self, imgs, depth_imgs, text_embed=None) -> Dict[str, torch.Tensor]:
@@ -99,7 +95,7 @@ class FrameServer:
             imgs = normalize_in_graph(imgs, self.normalize[0])
             depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
         out = self.outputs(imgs, depth_imgs)
-        resp = {"pred": self._classes(out).to(torch.uint8)}
+        resp = {"pred": fused_classes(out, self.membership).to(torch.uint8)}
         if text_embed is not None:
             resp["retrieval"] = retrieval_map(out["feat_occ"], text_embed)
         return resp
@@ -112,9 +108,10 @@ def _no_tf32(dev):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _build_model(cfg, dev, seed, variables) -> VeonModel:
-    """The model on `dev` with weights from `variables` (a JAX variables
-    tree as numpy arrays) when given, else from a seeded random init."""
+def build_model(cfg, dev, seed, variables) -> VeonModel:
+    """The model on `dev` with weights from `variables` (a whole JAX
+    variables tree as numpy arrays, strict on both sides) when given, else
+    from a seeded random init."""
     _no_tf32(dev)
     model = VeonModel(cfg, device=dev)
     if variables is not None:
@@ -155,7 +152,7 @@ def entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
     dev = resolve_device(device)
     if cfg is None:
         cfg = presets.veon_b(compute_dtype="bfloat16")
-    model = _build_model(cfg, dev, seed, variables)
+    model = build_model(cfg, dev, seed, variables)
     imgs, depth_imgs, metas = example_batch_full(cfg, device=dev)
     ovw, membership = _ov_weight(cfg, dev)
     return FrameServer(model, _with_presort(model, metas), ovw, membership), (imgs, depth_imgs)
@@ -171,7 +168,7 @@ def temporal_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 
     dev = resolve_device(device)
     if cfg is None:
         cfg = presets.veon_b(num_temporal=num_temporal, compute_dtype="bfloat16")
-    model = _build_model(cfg, dev, seed, variables)
+    model = build_model(cfg, dev, seed, variables)
     rig, requests = example_drive(cfg, frames, device=dev, seed=seed)
     ovw, membership = _ov_weight(cfg, dev)
     return TemporalSession(model, ovw, membership, rig_metas=_with_presort(model, rig)), requests
@@ -214,7 +211,7 @@ def train_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
     dev = resolve_device(device)
     if cfg is None:
         cfg = presets.veon_b(compute_dtype="bfloat16")
-    model = _build_model(cfg, dev, seed, variables)
+    model = build_model(cfg, dev, seed, variables)
     _prompts, refl = text_mod.build_vocabulary(cfg.vocabulary)
     membership = text_mod.merge_matrix(refl)
     tx = AdamW()
@@ -240,6 +237,37 @@ def build_text_tower(cfg: VeonConfig, device="cuda", seed: int = 0,
     else:
         init_random_(tower, torch.Generator().manual_seed(seed))
     return tower.to(dev)
+
+
+def serving_model(cfg: VeonConfig, device="cuda", seed: int = 0,
+                  variables: Optional[Mapping] = None, text_tower: Optional[Mapping] = None,
+                  bg_embed=None, logit_scale=None, bpe_path: Optional[str] = None,
+                  model: Optional[VeonModel] = None):
+    """(model, text tower, open-vocabulary weight, merge matrix) of the
+    serving surface (counterpart of the model, classifier and tower that
+    `veon_tpu/cli/main.py` `_build_model_and_params` builds): `model` when
+    given (the CLI's checkpoint route, `cli/main.py` `checkpoint_model`),
+    else as `build_model` builds it from `variables`; the text tower from
+    `text_tower` (the JAX tower's params tree as numpy) or seeded, and the
+    classifier over `cfg.vocabulary` through the tower (`nn/text.py`
+    `text_classifier`) when the tower comes with `bg_embed` (1, C) and
+    `logit_scale`, else the JAX CLI's placeholder, N(0, 1) from numpy's
+    default_rng(0). A real tower without BPE merges, or with another
+    vocabulary size than the config's, raises before anything encodes
+    (the reference's refusals)."""
+    dev = resolve_device(device)
+    classify = text_tower is not None and bg_embed is not None and logit_scale is not None
+    if classify:
+        rows = np.shape(text_tower["token_embedding"]["embedding"])[0]
+        text_mod.check_text_tower(cfg, text_mod.ClipTokenizer(bpe_path), rows)
+    if model is None:
+        model = build_model(cfg, dev, seed, variables)
+    ovw, membership = _ov_weight(cfg, dev, seed=0)
+    tower = build_text_tower(cfg, dev, seed, text_tower)
+    if classify:
+        prompts, _refl = text_mod.build_vocabulary(cfg.vocabulary)
+        ovw = text_mod.text_classifier(cfg, prompts, tower, bg_embed, logit_scale, bpe_path)
+    return model, tower, ovw, membership
 
 
 class ServeHandler:
@@ -327,28 +355,21 @@ class ServeHandler:
 def serve_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
                 variables: Optional[Mapping] = None, text_tower: Optional[Mapping] = None,
                 bg_embed=None, logit_scale=None, bpe_path: Optional[str] = None,
-                raw_uint8: bool = False):
+                raw_uint8: bool = False, model: Optional[VeonModel] = None):
     """(handler, required request keys, expectation string, exclusive) of
     the socket server for `cfg` (default: veon_b in bf16), warmed on the
     example frames (mid-gray uint8 ones with raw_uint8) with an empty
     prompt's tokens.
 
-    Weights from `variables` and the text tower's from `text_tower`
-    (JAX trees as numpy) when given, else seeded stand-ins. The classifier
-    is the text tower's over the vocabulary (`nn/text.py`
-    `text_classifier`) when the tower's params come with `bg_embed` (1, C)
-    and `logit_scale`, else the JAX CLI's placeholder, N(0, 1) from
-    numpy's default_rng(0). cfg.num_temporal > 1 serves a streaming
-    session, one connection at a time (exclusive)."""
+    The model, text tower and classifier as `serving_model` builds them
+    from `model` or `variables`, `text_tower`, `bg_embed`, `logit_scale`
+    and `bpe_path`. cfg.num_temporal > 1 serves a streaming session, one
+    connection at a time (exclusive)."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = presets.veon_b(compute_dtype="bfloat16")
-    model = _build_model(cfg, dev, seed, variables)
-    tower = build_text_tower(cfg, dev, seed, text_tower)
-    ovw, membership = _ov_weight(cfg, dev, seed=0)
-    if text_tower is not None and bg_embed is not None and logit_scale is not None:
-        prompts, _refl = text_mod.build_vocabulary(cfg.vocabulary)
-        ovw = text_mod.text_classifier(cfg, prompts, tower, bg_embed, logit_scale, bpe_path)
+    model, tower, ovw, membership = serving_model(cfg, dev, seed, variables, text_tower,
+                                                  bg_embed, logit_scale, bpe_path, model)
     imgs, depth_imgs, metas = example_batch_full(cfg, device=dev)
     no_text = text_mod.ClipTokenizer().tokenize([""])  # warms the text path too
     norm = ("clipsan", cfg.data.depth_norm_method) if raw_uint8 else None

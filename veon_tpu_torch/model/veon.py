@@ -45,6 +45,7 @@ from ..nn.alignnet import AlignNet3D, LiftFusion
 from ..nn.dpt import DepthAnythingV2
 from ..nn.hsa import HighresSideAdaptor
 from ..nn.san import SideAdapterNetwork
+from ..nn.text import merge_classes_max
 from ..nn.vit import CLIPRecHead, CLIPVisualExtractor
 from ..ops.grid_sample import grid_sample_3d
 from ..ops.resize import resize_bilinear, resize_trilinear
@@ -296,6 +297,14 @@ def retrieval_map(feat_occ, text_embed, eps: float = 1e-8):
     denom = torch.clamp_min(torch.linalg.vector_norm(f, dim=-1) * torch.linalg.vector_norm(q),
                             eps)
     return ((f @ q) / denom).permute(0, 3, 2, 1)
+
+
+def fused_classes(out, membership):
+    """The (B, X, Y, Z) int32 class grid of the model's raw outputs: the
+    vocabulary's prompts merged into classes by max (`membership` from
+    `nn/text.py` `merge_matrix`), then the fusion rule."""
+    return fusion_rule(merge_classes_max(out["sem_occ_raw"], membership, axis=-1),
+                       out["bin_occ"])
 
 
 def fusion_rule(sem_occ_merged, bin_occ, free_idx: int = 17):

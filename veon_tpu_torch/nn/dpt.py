@@ -96,12 +96,14 @@ class DepthAnythingV2(nn.Module):
         super().__init__()
         vit = cfg.vit
         self.max_depth = cfg.max_depth
-        self.pretrained = DinoV2Trunk(vit.width, vit.depth, vit.heads, patch_size=14,
-                                      pretrain_grid=37, take_layers=cfg.intermediate_layer_idx,
-                                      dtype=dtype)
-        self.depth_head = DPTHead(vit.width, cfg.features, cfg.out_channels, dtype=dtype)
+        self.patch_size = vit.patch_size
+        self.pretrained = DinoV2Trunk(vit.width, vit.depth, vit.heads, patch_size=vit.patch_size,
+                                      pretrain_grid=vit.pretrain_grid[0],
+                                      take_layers=cfg.intermediate_layer_idx, dtype=dtype)
+        self.depth_head = DPTHead(vit.width, cfg.features, cfg.out_channels,
+                                  patch_size=vit.patch_size, dtype=dtype)
 
     def forward(self, images):
-        ph, pw = images.shape[1] // 14, images.shape[2] // 14
+        ph, pw = images.shape[1] // self.patch_size, images.shape[2] // self.patch_size
         tokens = [t for t, _cls in self.pretrained(images)]
         return self.depth_head(tokens, (ph, pw))[..., 0] * self.max_depth

@@ -407,6 +407,21 @@ def ov_classifier_weight(cat_embeddings: torch.Tensor, bg_embed: torch.Tensor,
     return torch.exp(logit_scale) * w
 
 
+def check_text_tower(cfg, tokenizer: ClipTokenizer, vocab_rows: int, require_bpe: bool = True):
+    """The reference's refusals before a real text tower encodes the
+    vocabulary, in its order: no BPE merges (the hash-fallback tokenizer
+    would silently scramble every prompt) unless require_bpe=False, then a
+    token-embedding row count other than the config's vocabulary size."""
+    if tokenizer.fallback and require_bpe:
+        raise ValueError(
+            "a real CLIP text tower was given but no BPE vocab is available: pass bpe_path "
+            "pointing at bpe_simple_vocab_16e6.txt.gz (the hash-fallback tokenizer would "
+            "silently corrupt every class prompt)")
+    if vocab_rows != cfg.san.text_vocab_size:
+        raise ValueError(f"text tower vocab size {vocab_rows} != configured "
+                         f"{cfg.san.text_vocab_size}; checkpoint/config mismatch")
+
+
 def text_classifier(cfg, prompts, text_tower, bg_embed, logit_scale, bpe_path=None,
                     require_bpe=True) -> torch.Tensor:
     """The open-vocabulary classifier (len(prompts) + 1, C) fp32 on the
@@ -421,15 +436,7 @@ def text_classifier(cfg, prompts, text_tower, bg_embed, logit_scale, bpe_path=No
     raises unless require_bpe=False. A tower whose vocabulary differs from
     the config's raises too."""
     tok = ClipTokenizer(bpe_path)
-    if tok.fallback and require_bpe:
-        raise ValueError(
-            "a real CLIP text tower was given but no BPE vocab is available: pass bpe_path "
-            "pointing at bpe_simple_vocab_16e6.txt.gz (the hash-fallback tokenizer would "
-            "silently corrupt every class prompt)")
-    rows = text_tower.token_embedding.weight.shape[0]
-    if rows != cfg.san.text_vocab_size:
-        raise ValueError(f"text tower vocab size {rows} != configured "
-                         f"{cfg.san.text_vocab_size}; checkpoint/config mismatch")
+    check_text_tower(cfg, tok, text_tower.token_embedding.weight.shape[0], require_bpe)
     dev = text_tower.positional_embedding.device
     with torch.no_grad():
         embeds = [text_tower(torch.from_numpy(tok.tokenize([t.format(p) for p in prompts])).to(dev))
