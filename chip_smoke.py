@@ -71,7 +71,19 @@ Phases; any failed check raises, so the exit code is non-zero:
      `veon_b_fast` and `veon_b_fast2` in bf16, a cold and 3 warm frames;
  17. bf16 against fp32 at full VEON-B width on phase 15's converted
      weights: flip rate, feat_occ cosine and occupancy MAD within the CPU
-     battery's bounds.
+     battery's bounds;
+ 18. the host data plane on a 16-frame shard of 900x1600 JPEGs
+     (`utils/loader_bench.py` `make_frames`): the g++ library of
+     `data/native.py` built, its depth projection and voxel ranks against
+     numpy, loader frames/s with 2 and 4 workers in thread and in process
+     mode (forked after the card's context exists);
+ 19. the eval loop, a main path: the tiny fixture's `test` with mirror
+     files card vs CPU, then through `cli/main.py` `main` at full VEON-B
+     width with seeded weights, fp32: `test` over 8 frames (kernel #3 once
+     per frame), `--pipeline 2` and `--raw-uint8` (equal grids),
+     `--num-temporal 2` (#3 twice per frame), `test --retrieval` on a
+     3-item CSV, `cache-depth` on 2 frames (idempotent), and `benchmark
+     --eval` in bf16 over 12 frames, whose JSON line is logged.
 Phases 11-12 serve through the CLI's handler, which computes in the
 preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
@@ -1703,6 +1715,307 @@ def precision_phase(variables):
     return r
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-19: the data plane and the dataset-driven loops
+# ---------------------------------------------------------------------------
+
+CAMS = ("CAM_FRONT_LEFT", "CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_BACK_LEFT", "CAM_BACK",
+        "CAM_BACK_RIGHT")
+
+
+def run_cli(argv):
+    """(result, captured stdout, host s, launches) of `cli/main.py` `main(argv)`;
+    the launch counts read around exactly that call."""
+    import contextlib
+    import io
+
+    from veon_tpu_torch.cli.main import main as cli_main
+
+    kernels = reset_launches()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = cli_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, buf.getvalue(), seconds, launches
+
+
+class captured:
+    """Records, while active, the class grids each `test` run hands
+    `NuScenesOccDataset.evaluate` (a (samples, X, Y, Z) uint8 array per run)
+    and, with outputs=True, the model outputs of every prediction."""
+
+    def __init__(self, outputs=False):
+        from veon_tpu_torch.cli import main as cli_mod
+        from veon_tpu_torch.data import nuscenes as pns
+
+        self.cli, self.ds, self.outputs = cli_mod, pns.NuScenesOccDataset, outputs
+        self.grids, self.outs = [], []
+
+    def __enter__(self):
+        self._evaluate, self._fused = self.ds.evaluate, self.cli.fused_classes
+        grids, outs, evaluate, fused = self.grids, self.outs, self._evaluate, self._fused
+
+        def record_evaluate(ds, results, **kw):
+            grids.append(np.stack([np.asarray(r) for r in results]))
+            return evaluate(ds, results, **kw)
+
+        def record_fused(out, membership):
+            outs.append(({k: out[k].cpu() for k in ("bin_occ", "sem_occ_raw")}, membership))
+            return fused(out, membership)
+
+        self.ds.evaluate = record_evaluate
+        if self.outputs:
+            self.cli.fused_classes = record_fused
+        return self
+
+    def __exit__(self, *exc):
+        self.ds.evaluate, self.cli.fused_classes = self._evaluate, self._fused
+
+
+def shard_paths(root, n, name):
+    """An infos pkl of the first n frames of the shard under root."""
+    import pickle
+
+    with open(os.path.join(root, "infos.pkl"), "rb") as f:
+        data = pickle.load(f)
+    path = os.path.join(root, f"{name}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"infos": data["infos"][:n], "metadata": data["metadata"]}, f)
+    return path
+
+
+def data_plane_phase(root):
+    """Phase 18, the host data plane at nuScenes scale: the C++ library built
+    with g++ (`data/native.py`); its depth projection of a 34,720-point
+    sweep into six 512x1408 augmented views held against the numpy one
+    (1e-6 where both fill a pixel; a point may change pixel only on a
+    pixel boundary), its voxel ranks of a VEON-B frustum (6 x 88 x 32 x 88 points)
+    equal to numpy's division; then `loader_bench.loader_fps` on the
+    16-frame 900x1600 JPEG shard under root with 2 and 4 workers, in thread
+    and in process mode (forked after the card's context exists)."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.data import native, transforms as T
+    from veon_tpu_torch.data.depth_gt import (lidar2img_matrices, points_to_depth_map,
+                                              project_points)
+    from veon_tpu_torch.utils.loader_bench import loader_fps
+
+    t = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the data plane's C++ library did not build with g++")
+    build_s = time.perf_counter() - t
+    cfg = presets.veon_b()
+    H, W = cfg.data.input_size
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.uniform(-50, 50, (34720, 2)), rng.uniform(-2, 4, (34720, 1))],
+                         1).astype(np.float32)
+    s2e = np.stack([T.se3([np.cos(c * np.pi / 6), 0, 0, np.sin(c * np.pi / 6)], [0, 0, 1.5])
+                    @ T.se3([0.5, -0.5, 0.5, -0.5], [0, 0, 0]) for c in range(6)])
+    K = np.tile(np.array([[1266.0, 0, 800], [0, 1266.0, 450], [0, 0, 1]], np.float32), (6, 1, 1))
+    eye = np.eye(4, dtype=np.float32)
+    l2i = lidar2img_matrices(T.se3([1, 0, 0, 0], [0, 0, 1.8]), eye, s2e, np.tile(eye, (6, 1, 1)),
+                             K)
+    rot, tran = T.aug_homography(T.sample_augmentation(cfg.data, (900, 1600)))
+    rots, trans = np.tile(rot, (6, 1, 1)), np.tile(tran, (6, 1))
+    t = time.perf_counter()
+    got = native.points_to_depth_native(pts, l2i, rots, trans, (H, W), cfg.grid.depth[:2])
+    native_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    uvd = [project_points(pts, l2i[n], rots[n], trans[n]) for n in range(6)]
+    want = np.stack([points_to_depth_map(u, H, W, cfg.grid) for u in uvd])
+    numpy_ms = (time.perf_counter() - t) * 1e3
+    # a pixel both fill holds the same depth within 1e-6; which pixel a point
+    # lands in may differ only where its u or v lies within float32 rounding
+    # (1e-3 px here) of a pixel boundary, each such point moving at most 2 pixels
+    both = (got > 0) & (want > 0)
+    depth_err = float(np.abs(got - want)[both].max())
+    moved = int((~np.isclose(got, want, rtol=1e-6, atol=1e-6)).sum())
+    edge = sum(int(((np.abs(np.abs(u[:, :2] - np.floor(u[:, :2])) - 0.5) < 1e-3).any(1)
+                    & (u[:, 2] >= cfg.grid.depth[0]) & (u[:, 2] < cfg.grid.depth[1])).sum())
+               for u in uvd)
+    if not np.allclose(got[both], want[both], rtol=1e-6, atol=1e-6) or moved > 2 * edge:
+        raise AssertionError(f"native depth projection: max diff {depth_err} where both fill a "
+                             f"pixel, {moved} pixels moved for {edge} points on a boundary")
+    filled = int((got > 0).sum())
+    if filled < 1000:
+        raise AssertionError(f"only {filled} depth pixels: the test rig sees no points")
+    grid = cfg.grid
+    coor = rng.uniform(-45, 45, (1, 6, 88, 32, 88, 3)).astype(np.float32)
+    coor[..., 2] = rng.uniform(-2, 6, coor.shape[:-1])
+    t = time.perf_counter()
+    ranks = native.voxel_ranks_native(coor, grid.lower_bound, grid.interval, grid.size)
+    ranks_ms = (time.perf_counter() - t) * 1e3
+    nx, ny, nz = grid.size
+    sc = (coor - np.float32(grid.lower_bound)) / np.float32(grid.interval)
+    v = sc.astype(np.int32)
+    ok = (sc >= 0).all(-1) & (v < np.array([nx, ny, nz])).all(-1)
+    ref = np.where(ok, (v[..., 2] * ny + v[..., 1]) * nx + v[..., 0], nx * ny * nz)
+    if not np.array_equal(ranks, ref):
+        raise AssertionError(f"native voxel ranks differ in {int((ranks != ref).sum())} points")
+    log(f"data plane: g++ library {'with' if native.has_jpeg() else 'without'} libjpeg, "
+        f"built and loaded in {build_s:.3f} s; depth of {len(pts)} points into 6 x {H}x{W}: "
+        f"native {native_ms:.3f} ms, numpy {numpy_ms:.3f} ms, max diff {depth_err:.3g}, "
+        f"{filled} pixels, {moved} moved ({edge} points on a boundary); ranks of {ranks.size} frustum points {ranks_ms:.3f} ms, equal, "
+        f"{int(ok.sum())} in the grid")
+    pkl = os.path.join(root, "infos.pkl")
+    fps = {}
+    for mode in ("thread", "process"):
+        for workers in (2, 4):
+            fps[f"{mode}_{workers}"] = loader_fps(pkl, root, workers, mode)
+    log(f"loader frames/s on the 16-frame 900x1600 shard (VEON-B eval samples, "
+        f"{os.cpu_count()} cores): {fps}")
+    return dict(native_jpeg=native.has_jpeg(), build_s=build_s, depth_native_ms=native_ms,
+                depth_numpy_ms=numpy_ms, depth_max_diff=depth_err, depth_pixels=filled,
+                depth_pixels_moved=moved, boundary_points=edge,
+                ranks_ms=ranks_ms, loader_fps=fps)
+
+
+def eval_tiny_parity_phase(root):
+    """The tiny fixture's `test` (a 3-frame 90x160 shard, 20x20x4 labels)
+    with mirror checkpoint files on the card and on the CPU: the class
+    grids equal off near-ties (phase 5's margin 1e-3 on the CPU's logits)
+    and the mIoU dicts equal where the grids are."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.utils.loader_bench import make_frames
+
+    pkl = make_frames(os.path.join(root, "tiny"), 3, hw=(90, 160), grid_shape=(20, 20, 4))
+    paths, _s, _b = mirror_weights(presets.veon_tiny_test(), os.path.join(root, "tiny_ckpts"))
+    argv = ["test", "--preset", "veon_tiny_test", "--data-root", os.path.join(root, "tiny"),
+            "--ann", pkl, "--workers", "1", "--load-from", paths["san"], "--depth-load-from",
+            paths["depth"], "--bpe-path", paths["bpe"]]
+    res, grids = {}, {}
+    for dev in ("cpu", "cuda"):
+        with captured(outputs=dev == "cpu") as rec:
+            res[dev] = run_cli(argv + ["--device", dev])[0]
+        grids[dev] = rec.grids[0]
+        if dev == "cpu":
+            ties = np.concatenate([near_ties(o, m).numpy() for o, m in rec.outs])
+    differ = grids["cuda"] != grids["cpu"]
+    if (differ & ~ties).any():
+        raise AssertionError(f"tiny test: {int((differ & ~ties).sum())} classes differ between "
+                             "card and CPU off near-ties")
+    if not differ.any() and res["cuda"] != res["cpu"]:
+        raise AssertionError("tiny test: equal grids but different mIoU dicts")
+    log(f"tiny test card vs CPU: classes differ in {int(differ.sum())} of {differ.size} voxels "
+        f"({int(ties.sum())} near-ties), mIoU {res['cuda']['mIoU']:.4f} / {res['cpu']['mIoU']:.4f}")
+    return dict(differ=int(differ.sum()), near_ties=int(ties.sum()),
+                miou_card=res["cuda"]["mIoU"], miou_cpu=res["cpu"]["mIoU"])
+
+
+def retrieval_shard(root, tokens):
+    """The shard's infos with a LiDAR sweep per frame (34,720 points, the
+    lidar 1.8 m above the ego) and a POP-3D CSV over `tokens`: per item a
+    binary annotation of every point and the camera-visible half."""
+    import pickle
+
+    with open(os.path.join(root, "infos.pkl"), "rb") as f:
+        data = pickle.load(f)
+    rng = np.random.default_rng(5)
+    rows = []
+    for info in data["infos"]:
+        pts = np.concatenate([rng.uniform(-40, 40, (34720, 2)), rng.uniform(-3, 3, (34720, 1)),
+                              rng.uniform(0, 1, (34720, 2))], 1).astype(np.float32)
+        info["lidar_path"] = os.path.join(root, f"lidar_{info['token']}.bin")
+        pts.tofile(info["lidar_path"])
+        info["lidar2ego_rotation"], info["lidar2ego_translation"] = [1.0, 0, 0, 0], [0, 0, 1.8]
+        if info["token"] in tokens:
+            anno = (rng.uniform(size=34720) < 0.1).astype(np.uint8)
+            np.save(os.path.join(root, f"anno_{info['token']}.npy"), anno)
+            np.save(os.path.join(root, f"match_{info['token']}.npy"), np.arange(0, 34720, 2))
+            rows.append(f"{info['token']};val;anno_{info['token']}.npy;"
+                        f"match_{info['token']}.npy;a parked red car")
+    pkl = os.path.join(root, "infos_lidar.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(data, f)
+    csv_path = os.path.join(root, "retrieval_anns_val.csv")
+    with open(csv_path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return pkl, csv_path
+
+
+def eval_loop_phase(root, frames=8):
+    """Phase 19, the eval loop at full VEON-B width with seeded weights, a
+    main path: `cli/main.py` `main` runs `test` (fp32, the preset's dtype)
+    on the first `frames` frames of the shard (200x200x16 labels), kernel
+    #3 once per frame read around exactly that run; then `--pipeline 2`
+    (equal grids and mIoU dict), `--raw-uint8` (equal grids),
+    `--num-temporal 2` (#3 twice per frame), `test --retrieval` on a
+    3-item CSV (finite mAP, #3 once per item), `cache-depth` on 2 frames
+    (token[:2]/token/token-CAM.npy, idempotent) and `benchmark --eval` in
+    bf16 over 12 frames of its own shard, whose JSON line is logged."""
+    pkl = shard_paths(root, frames, "eval")
+    base = ["--data-root", root, "--ann", pkl, "--workers", "2"]
+    runs, grids = {}, {}
+    for name, extra in (("plain", []), ("pipeline2", ["--pipeline", "2"]),
+                        ("raw_uint8", ["--raw-uint8"]), ("t2", ["--num-temporal", "2"])):
+        with captured() as rec:
+            res, out, s, launches = run_cli(["test", "--preset", "veon_b", *base, *extra])
+        grids[name] = rec.grids[0]
+        line = next(ln for ln in out.splitlines() if ln.startswith("inference done"))
+        k = 2 * frames if name == "t2" else frames
+        expect_launches(launches, {n: k if n == "bev_pool_sorted2" else 0 for n in launches},
+                        f"test {name}")
+        g = grids[name]
+        if g.shape != (frames, 200, 200, 16) or g.dtype != np.uint8 or g.max() > 17:
+            raise AssertionError(f"test {name}: grids {g.shape} {g.dtype} max {g.max()}")
+        if not np.isfinite(res["mIoU"]):
+            raise AssertionError(f"test {name}: mIoU {res['mIoU']}")
+        runs[name] = dict(miou=res["mIoU"], seconds=s, line=line, launches=launches,
+                          classes=np.bincount(g.reshape(-1), minlength=18).tolist())
+        log(f"test veon_b fp32 {name}: {line}; {s:.3f} s with the model build; mIoU "
+            f"{res['mIoU']:.4f}; launches {launches}")
+        if name == "plain":
+            plain = res
+        elif name == "pipeline2" and res != plain:
+            raise AssertionError("--pipeline 2 gave another mIoU dict")
+        if name in ("pipeline2", "raw_uint8") and not np.array_equal(g, grids["plain"]):
+            raise AssertionError(f"test {name}: grids differ from the serial run in "
+                                 f"{int((g != grids['plain']).sum())} voxels")
+    tokens = ("tok0", "tok3", "tok6")
+    lidar_pkl, csv_path = retrieval_shard(root, tokens)
+    res, out, s, launches = run_cli(["test", "--retrieval", "--preset", "veon_b",
+                                     "--data-root", root, "--ann", lidar_pkl, "--workers", "2",
+                                     "--retrieval-items", csv_path])
+    expect_launches(launches, {n: len(tokens) if n == "bev_pool_sorted2" else 0
+                               for n in launches}, "test --retrieval")
+    if res["num_prompts"] != len(tokens) or not np.isfinite(res["mAP"]):
+        raise AssertionError(f"test --retrieval: {res}")
+    runs["retrieval"] = dict(summary=res, seconds=s, launches=launches)
+    log(f"test --retrieval veon_b fp32: {res}, {s:.3f} s")
+    cache = os.path.join(root, "depth_cache")
+    argv = ["cache-depth", "--preset", "veon_b", "--data-root", root, "--ann",
+            shard_paths(root, 2, "cache"), "--workers", "2", "--cache-dir", cache]
+    n, _out, s, _l = run_cli(argv)
+    files = [os.path.join(cache, t[:2], t, f"{t}-{c}.npy") for t in ("tok0", "tok1") for c in CAMS]
+    for f in files:
+        d = np.load(f)
+        if d.shape != (256, 704) or d.dtype != np.float32 or not np.isfinite(d).all():
+            raise AssertionError(f"cache-depth {f}: {d.shape} {d.dtype}")
+    again = run_cli(argv)[0]
+    if n != len(files) or again != 0:
+        raise AssertionError(f"cache-depth wrote {n} then {again} files, expected 12 then 0")
+    runs["cache_depth"] = dict(files=n, seconds=s, rerun_files=again)
+    log(f"cache-depth veon_b fp32: {n} files in {s:.3f} s, token[:2]/token/token-CAM.npy, "
+        f"(256, 704) float32; a second run wrote {again}")
+    os.environ.pop("VEON_ENTRY_DTYPE", None)
+    bench, _out, s, launches = run_cli(["benchmark", "--eval", "--frames", "12"])
+    expect_launches(launches, {n: 37 if n == "bev_pool_sorted2" else 0 for n in launches},
+                    "benchmark --eval (1 cold + 12 + 12 pipelined + 12 e2e frames)")
+    d = bench["detail"]
+    if d["dtype"] != "bfloat16" or not all(d[k] > 0 for k in (
+            "device_path_fps", "pipelined_fps", "e2e_fps", "hist_ms_per_frame")):
+        raise AssertionError(f"benchmark --eval: {bench}")
+    log(json.dumps(bench))
+    runs["benchmark_eval"] = dict(result=bench, seconds=s, launches=launches)
+    runs["launches_sorted2"] = sum(r["launches"]["bev_pool_sorted2"] for r in runs.values()
+                                   if isinstance(r, dict) and "launches" in r)
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1754,10 +2067,24 @@ def main():
     new_presets = presets_phase(main_res["median_ms"])
     precision = precision_phase(variables)
     del variables
+    gc.collect()
+    torch.cuda.empty_cache()
+    from veon_tpu_torch.utils.loader_bench import make_frames
+
+    shard = tempfile.mkdtemp(prefix="veon_shard")
+    try:
+        t = time.perf_counter()
+        make_frames(shard, 16)
+        log(f"shard: 16 frames x 6 cams of 900x1600 JPEGs in {time.perf_counter() - t:.1f} s")
+        data_plane = data_plane_phase(shard)
+        eval_tiny = eval_tiny_parity_phase(shard)
+        eval_loop = eval_loop_phase(shard)
+    finally:
+        shutil.rmtree(shard, ignore_errors=True)
 
     # launches on the main paths: the F=1 frames, the requests served from
     # converted weights and the new presets' frames (#1); the train steps
-    # and the weights drill's forward (#2, #3)
+    # (#2, #3), the weights drill's forward and the eval loop's frames (#3)
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
                                 + sum(weights["launches_per_request"])
                                 + new_presets["launches"]["bev_pool_pooled"]),
@@ -1765,7 +2092,8 @@ def main():
                                 train["full"]["launches"]["bev_pool_sorted"]),
             "bev_pool_sorted2": (sorted_res["band_spray_bf16"],
                                  train["banded"]["launches"]["bev_pool_sorted2"]
-                                 + weights["drill_launches"]["bev_pool_sorted2"]),
+                                 + weights["drill_launches"]["bev_pool_sorted2"]
+                                 + eval_loop["launches_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
                          + temporal["launches"]["ln_dense"])}
@@ -1784,6 +2112,8 @@ def main():
                    "batched_temporal": batched, "text_tower": text, "serve_f1": serve_f1,
                    "serve_t2": serve_t2, "metrics": metrics, "weights_tiny": weights_tiny,
                    "weights": weights, "presets": new_presets, "precision": precision,
+                   "data_plane": data_plane, "eval_tiny_parity": eval_tiny,
+                   "eval_loop": eval_loop,
                    "builds": {k: v["seconds"] for k, v in builds.items()}},
                   f, indent=1)
     for r, _ in rows.values():

@@ -277,3 +277,16 @@ def test_weights_drill_on_card_matches_cpu(card, tmp_path, capsys):
     lines = [ln for ln in gpu.splitlines() if ln.startswith("[")]
     assert len(lines) == 4 and lines[:3] == [ln for ln in cpu.splitlines() if ln.startswith("[")][:3]
     assert abs(got["miou"] - want["miou"]) <= 1.0
+
+
+def test_normalize_in_graph_on_card_equals_host_normalizers(card):
+    """Raw uint8 frames normalized on the card are bit-equal to the host
+    normalizers, for every method: `test --raw-uint8` and raw-uint8
+    serving rely on it (a Python-scalar /255 on the card multiplies by the
+    reciprocal and moved voxels of a VEON-B grid)."""
+    from veon_tpu_torch.data.transforms import NORMALIZERS, normalize_in_graph
+
+    u8 = np.random.default_rng(0).integers(0, 256, size=(2, 64, 96, 3)).astype(np.uint8)
+    for method, host in NORMALIZERS.items():
+        got = normalize_in_graph(torch.from_numpy(u8).to(card), method).cpu().numpy()
+        np.testing.assert_array_equal(got, host(u8), err_msg=method)

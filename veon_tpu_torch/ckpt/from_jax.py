@@ -24,6 +24,10 @@ tree holds (the converted families of the reference's checkpoints, loaded
 over a seeded model by `cli/main.py` `checkpoint_model`), each strict on
 both sides.
 
+`variables_from_model` is the inverse: a model's JAX variables tree as
+numpy, which the eval-time conv-BN folding of `ckpt/convert.py`
+`fuse_conv_bn` takes (`cli/main.py` `test --fuse-conv-bn`).
+
 `load_text_tower` fills a `CLIPTextEncoder` from the text-tower tree of
 `veon_tpu/ckpt/convert.py` `convert_text_tower` (the `extras["text_tower"]`
 params, scan-stacked `resblocks/block/...`), strict on both sides.
@@ -113,6 +117,53 @@ def state_dict_from_jax(model: nn.Module, variables: Mapping, strict: bool = Tru
     if leftover:
         raise ValueError(f"JAX leaves not consumed by the port: {leftover}")
     return sd
+
+
+def _from_torch_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf != "weight":
+        return a
+    if isinstance(owner, Dense):
+        return a.T
+    if isinstance(owner, Conv2d):
+        return a.transpose(2, 3, 1, 0)
+    if isinstance(owner, Conv3d):
+        return a.transpose(2, 3, 4, 1, 0)
+    if isinstance(owner, ConvTranspose2d):
+        return a.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return a
+
+
+def _stack(entries: Dict[Tuple[int, ...], np.ndarray]) -> np.ndarray:
+    """One array from the unstacked scan entries {index path: array}."""
+    if () in entries:
+        return entries[()]
+    heads = sorted({i[0] for i in entries})
+    if heads != list(range(len(heads))):
+        raise ValueError(f"scan entries {heads} are not 0..n-1")
+    return np.stack([_stack({i[1:]: a for i, a in entries.items() if i[0] == h})
+                     for h in heads])
+
+
+def variables_from_model(model: nn.Module) -> Dict:
+    """The JAX variables tree {"params", "batch_stats"} of `model` as nested
+    dicts of numpy arrays: the inverse of `state_dict_from_jax`, so
+    `load_from_jax(model, variables_from_model(model))` changes nothing."""
+    groups: Dict[Tuple[str, ...], Dict[Tuple[int, ...], np.ndarray]] = {}
+    for name, t in model.state_dict().items():
+        parts = name.split(".")
+        owner = model.get_submodule(".".join(parts[:-1]))
+        col, leaf = _source(owner, parts[-1])
+        key = (col,) + tuple(p for p in parts[:-1] if not p.isdigit()) + (leaf,)
+        index = tuple(int(p) for p in parts[:-1] if p.isdigit())
+        a = _from_torch_layout(owner, parts[-1], t.detach().float().cpu().numpy())
+        groups.setdefault(key, {})[index] = np.array(a)  # a copy, 0-d kept
+    tree: Dict = {}
+    for key, entries in groups.items():
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = _stack(entries)
+    return tree
 
 
 def load_from_jax(model: nn.Module, variables: Mapping) -> nn.Module:

@@ -2,8 +2,8 @@
 
 A copy of the fields of `veon_tpu/configs/base.py` that the serving
 forwards (F=1 and temporal), the text tower and the stage-2 train step
-read (the port imports nothing of `veon_tpu`). ZoeDepth and data-loader
-fields come with the slices that port those parts.
+read, and the host data plane's `DataConfig` (the port imports nothing of
+`veon_tpu`). ZoeDepth fields come with the slice that ports that branch.
 """
 
 from __future__ import annotations
@@ -158,12 +158,40 @@ class DepthConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    """Camera + input geometry and the host data plane's augmentation."""
+
+    cams: Tuple[str, ...] = (
+        "CAM_FRONT_LEFT",
+        "CAM_FRONT",
+        "CAM_FRONT_RIGHT",
+        "CAM_BACK_LEFT",
+        "CAM_BACK",
+        "CAM_BACK_RIGHT",
+    )
     num_cams: int = 6
     input_size: Tuple[int, int] = (512, 1408)
     depth_norm_method: str = "depthanythingv2"
     depth_input_size: Tuple[int, int] = (256, 704)
     # DA-V2 lower-bound resize target (multiple of 14)
     dav2_target: int = 252
+    src_size: Tuple[int, int] = (900, 1600)
+    # image augmentation ranges, all off as in the VEON configs
+    resize: Tuple[float, float] = (0.0, 0.0)
+    rot: Tuple[float, float] = (0.0, 0.0)
+    flip: bool = False
+    crop_h: Tuple[float, float] = (0.0, 0.0)
+    resize_test: float = 0.0
+    # BEV data augmentation, sampled per train sample: the geometry gets the
+    # 3x3 bda matrix, the occ GT and masks the matching axis flips;
+    # identity / off as in the published recipe
+    bda_rot_lim: Tuple[float, float] = (0.0, 0.0)
+    bda_scale_lim: Tuple[float, float] = (1.0, 1.0)
+    bda_flip_dx_ratio: float = 0.0
+    bda_flip_dy_ratio: float = 0.0
+    # the dataset emits post-aug uint8 frames and normalization runs on the
+    # device (`data/transforms.py` `normalize_in_graph`): bit-exact against
+    # the host normalizers, 4x less host memory and host-to-device copy
+    raw_uint8: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
