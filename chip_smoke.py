@@ -25,7 +25,8 @@ Phases; any failed check raises, so the exit code is non-zero:
      launch counts read around exactly those steps, and the in-grid rows
      of the lift's streams on the step's own depth; then where a step's
      time goes (a profiled step and three steps timed in stages);
-  5. the serving path at a small size on the card against the CPU;
+  5. the serving path at a small size on the card against the CPU (depth,
+     voxel outputs, class grids off near-ties);
   6. serving, a main path: `veon_tpu_torch.entry` at full VEON-B width in
      bf16, 3 frames, kernel #1's launches read around exactly that run;
   7. where a frame's time goes: per-tower device time and the profiler's
@@ -83,7 +84,27 @@ Phases; any failed check raises, so the exit code is non-zero:
      per frame), `--pipeline 2` and `--raw-uint8` (equal grids),
      `--num-temporal 2` (#3 twice per frame), `test --retrieval` on a
      3-item CSV, `cache-depth` on 2 frames (idempotent), and `benchmark
-     --eval` in bf16 over 12 frames, whose JSON line is logged.
+     --eval` in bf16 over 12 frames, whose JSON line is logged;
+ 20. phase 5 on the ZoeDepth-NK branch (the tiny preset with the JAX
+     tests' tiny zoe tower), card vs CPU;
+ 21. zoe serving, a main path: phase 6 on `presets.veon_b_zoe(
+     compute_dtype="bfloat16")` at full width (256x704 midas depth input,
+     kernel #1 once per frame), then the stage breakdown with the depth
+     tower split into BEiT trunk, MiDaS decoder and bins head, a profiled
+     frame, and the attention kernels of the depth tower (the SDPA backend
+     that takes BEiT's float bias);
+ 22. zoe streaming, a main path: phase 9 on `veon_b_zoe(num_temporal=2,
+     compute_dtype="bfloat16")`, 4 calls, #1 once per call;
+ 23. zoe weights day, a main path: full-width files (SAN ViT-B, a
+     ZoeDepth-NK dump with LoRA r=8 at trained scales, BPE), every key read
+     but the ignored ones, read + convert and load timed; `serve --preset
+     veon_b_zoe` F=1 (2 requests) and T=2 (3 requests) on the socket, equal
+     to the direct calls; `selftest --weights-dir` (#3 once); 2 veon_l_zoe
+     fp32 frames with the converted tower;
+ 24. veon_b_zoe bf16 against fp32 on the converted weights (the battery);
+ 25. zoe evaluation, a main path (run with phase 19's shard): `test
+     --preset veon_b_zoe` on 4 frames (#3 once per frame), `cache-depth`
+     on 2 frames.
 Phases 11-12 serve through the CLI's handler, which computes in the
 preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
@@ -646,33 +667,57 @@ def train_breakdown(trainer, batch, cfg, tstep, steps=3):
     return dict(prof, stage_ms=stages, stage_ms_each=runs)
 
 
-def small_parity_phase():
-    """The serving path at the tiny preset in fp32: card vs CPU, same weights."""
+def small_parity_phase(cfg=None):
+    """A serving path at a small size in fp32 (default: the tiny preset):
+    card vs CPU, same weights: the rig precompute equal, the depth estimate
+    and voxel outputs within 1e-3, the class grids equal off near-ties."""
     from veon_tpu_torch.configs import presets
     from veon_tpu_torch.entry import entry
     from veon_tpu_torch.model.veon import VOXEL_OUTPUTS
 
-    cfg = presets.veon_tiny_test()
+    cfg = cfg or presets.veon_tiny_test()
     cpu, (imgs, depth_imgs) = entry(cfg, device="cpu", seed=3)
     gpu, (imgs_g, depth_g) = entry(cfg, device="cuda", seed=3)
     gpu.model.load_state_dict(cpu.model.state_dict())
-    want = cpu.outputs(imgs, depth_imgs)
-    got = gpu.outputs(imgs_g, depth_g)
     for k in ("order", "rk_pooled", "ranks"):
         if not torch.equal(cpu.metas["lift_sorted"][k], gpu.metas["lift_sorted"][k].cpu()):
             raise AssertionError(f"rig precompute {k} differs between CPU and card")
+    with torch.no_grad():
+        d_cpu, d_gpu = cpu.model.estimate_depth(depth_imgs), gpu.model.estimate_depth(depth_g)
+    torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-3, atol=1e-3, msg="depth")
+    depth_diff = (d_gpu.cpu() - d_cpu).abs().max().item()
+    want, got = cpu.outputs(imgs, depth_imgs), gpu.outputs(imgs_g, depth_g)
     worst = 0.0
     for k in VOXEL_OUTPUTS:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3, atol=1e-3, msg=k)
         worst = max(worst, (got[k].cpu() - want[k]).abs().max().item())
-    log(f"small-input parity (veon_tiny_test fp32, card vs CPU plain path): "
-        f"max abs diff {worst:.3g} over {VOXEL_OUTPUTS}")
-    return worst
+    differ = (gpu(imgs_g, depth_g).cpu() != cpu(imgs, depth_imgs)).numpy()
+    ties = near_ties(want, cpu.membership).numpy()
+    if (differ & ~ties).any():
+        raise AssertionError(f"{int((differ & ~ties).sum())} classes differ between card and "
+                             "CPU off near-ties")
+    log(f"small-input parity ({type(cpu.model.depth).__name__} depth tower, depth input "
+        f"{tuple(depth_imgs.shape)}, fp32, card vs CPU plain path): depth max abs diff "
+        f"{depth_diff:.3g}, {worst:.3g} over {VOXEL_OUTPUTS}, classes differ in "
+        f"{int(differ.sum())} voxels ({int(ties.sum())} near-ties)")
+    return dict(depth_max_abs=depth_diff, max_abs=worst, differ=int(differ.sum()),
+                near_ties=int(ties.sum()))
+
+
+def label(cfg):
+    """"veon_b bf16", "veon_b_zoe T=2 fp32", ...: a full-width config's name."""
+    name = "veon_b_zoe" if cfg.depth_mode == "zoedepth" else "veon_b"
+    T = f" T={cfg.num_temporal}" if cfg.num_temporal > 1 else ""
+    return f"{name}{T} {'bf16' if cfg.compute_dtype == 'bfloat16' else 'fp32'}"
 
 
 def main_path(cfg, frames=3):
+    """F=1 serving, a main path: `entry(cfg)` on the card with seeded
+    weights, `frames` frames, kernel #1 exactly once per frame and no
+    other launch read around exactly those frames."""
     from veon_tpu_torch.entry import entry
 
+    base = phase_base()
     t0 = time.perf_counter()
     server, (imgs, depth_imgs) = entry(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -687,6 +732,7 @@ def main_path(cfg, frames=3):
         times.append((time.perf_counter() - t) * 1e3)
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
+    above = peak - base
     if tuple(grid.shape) != (1, 200, 200, 16) or grid.dtype != torch.int32:
         raise AssertionError(f"class grid {tuple(grid.shape)} {grid.dtype}")
     lo, hi = int(grid.min()), int(grid.max())
@@ -700,12 +746,13 @@ def main_path(cfg, frames=3):
         if v.dtype != torch.float32 or not torch.isfinite(v).all():
             raise AssertionError(f"output {k} not finite fp32")
     classes = torch.bincount(grid.flatten().long(), minlength=18).tolist()
-    log(f"main path veon_b bf16: setup {setup_s:.1f} s, frames ms {[round(t, 3) for t in times]}, "
-        f"median {statistics.median(times):.3f} ms/frame, peak memory {peak / 2**30:.3f} GiB, "
-        f"launches {launches}, class histogram {classes}")
+    log(f"main path {label(cfg)}: setup {setup_s:.1f} s, frames ms {[round(t, 3) for t in times]}, "
+        f"median {statistics.median(times):.3f} ms/frame, peak memory {peak / 2**30:.3f} GiB "
+        f"({above / 2**30:.3f} above the phase's start), launches {launches}, class histogram "
+        f"{classes}")
     return server, (imgs, depth_imgs), dict(
         frame_ms=times, median_ms=statistics.median(times), peak_bytes=peak,
-        launches=launches, setup_s=setup_s, classes=classes)
+        peak_above_start_bytes=above, launches=launches, setup_s=setup_s, classes=classes)
 
 
 STAGES = ("depth", "clip_visual", "side_adapter", "rec_head", "hsa", "lift_fusion", "alignnet")
@@ -848,15 +895,16 @@ def temporal_parity_phase(calls=3):
     return dict(max_abs_diff=worst, pred_agreement=agree)
 
 
-def temporal_main_path(calls=4):
-    """Streaming temporal serving at full VEON-B width: `temporal_entry()`
-    (T=2, bf16, seeded random weights), `calls` calls of the drive, every
-    launch count read around exactly those calls: kernel #1 once per call,
-    no other kernel."""
+def temporal_main_path(cfg=None, calls=4):
+    """Streaming temporal serving at full width: `temporal_entry(cfg)`
+    (default VEON-B T=2 bf16; seeded random weights), `calls` calls of the
+    drive, every launch count read around exactly those calls: kernel #1
+    once per call, no other kernel."""
     from veon_tpu_torch.entry import temporal_entry
 
+    base = phase_base()
     t0 = time.perf_counter()
-    session, reqs = temporal_entry(device="cuda", seed=0, frames=calls)
+    session, reqs = temporal_entry(cfg, device="cuda", seed=0, frames=calls)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -882,11 +930,14 @@ def temporal_main_path(calls=4):
             raise AssertionError(f"temporal output {k} not finite")
     classes = torch.bincount(pred.flatten().long(), minlength=18).tolist()
     steady = statistics.median(times[1:])
-    log(f"temporal main path veon_b T=2 bf16: setup {setup_s:.1f} s, call ms "
+    log(f"temporal main path {label(session.model.cfg)}: setup {setup_s:.1f} s, call ms "
         f"{[round(t, 3) for t in times]} (call 1 cold), steady median {steady:.3f} ms/call, peak "
-        f"memory {peak / 2**30:.3f} GiB, launches {launches}, class histogram {classes}")
+        f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} above the phase's start), "
+        f"launches {launches}, class histogram {classes}")
     return session, reqs, dict(call_ms=times, steady_median_ms=steady, peak_bytes=peak,
-                               launches=launches, setup_s=setup_s, classes=classes)
+                               peak_above_start_bytes=peak - base,
+                               launches=launches, setup_s=setup_s, classes=classes,
+                               depth_input=tuple(reqs[0]["depth_imgs"].shape[3:5]))
 
 
 def temporal_breakdown(session, reqs):
@@ -1359,8 +1410,11 @@ def metrics_phase(grid):
 # resConfUnit1 (built by the DPT head, never run: the top fusion block has
 # no skip input)
 IGNORED_SUFFIXES = ("num_batches_tracked",)
+# a ZoeDepth-NK dump's BEiT blocks also carry their index buffers
+ZOE_IGNORED_SUFFIXES = ("num_batches_tracked", "relative_position_index")
 IGNORED_KEYS = ("ov_classifier.attn_mask",)
-IGNORED_PREFIXES = ("depth_head.scratch.refinenet4.resConfUnit1.",)
+IGNORED_PREFIXES = ("depth_head.scratch.refinenet4.resConfUnit1.",
+                    "core.core.scratch.refinenet4.resConfUnit1.")
 
 
 class _ReadKeys(dict):
@@ -1383,28 +1437,46 @@ class _ReadKeys(dict):
 
 def unread_keys(cfg, paths):
     """The keys of the checkpoint files at `paths` ("san", "depth") that
-    neither converter reads, the ignored ones left out; (count of keys,
-    unread keys)."""
+    neither converter reads (the depth dump's of `cfg`'s branch), the
+    ignored ones left out; (count of keys, unread keys)."""
     from veon_tpu_torch.ckpt import convert as C
 
     san = _ReadKeys(C.load_torch_state_dict(paths["san"]))
     depth = _ReadKeys(C.load_torch_state_dict(paths["depth"]))
     C.convert_san_semantic(san, cfg)
-    C.convert_dav2(depth, cfg.depth)
+    zoe = cfg.depth_mode == "zoedepth"
+    if zoe:
+        C.convert_zoedepth(depth, cfg.zoe)
+    else:
+        C.convert_dav2(depth, cfg.depth)
+    suffixes = ZOE_IGNORED_SUFFIXES if zoe else IGNORED_SUFFIXES
     unread = sorted(k for sd in (san, depth) for k in sd if k not in sd.read
-                    and not k.endswith(IGNORED_SUFFIXES) and k not in IGNORED_KEYS
+                    and not k.endswith(suffixes) and k not in IGNORED_KEYS
                     and not k.startswith(IGNORED_PREFIXES))
     return len(san) + len(depth), unread
 
 
-def mirror_weights(cfg, root):
-    """Reference-layout checkpoint files for `cfg` under `root` (a
-    semantic dump with the text tower, a DA-V2 dump with LoRA adapters of
-    rank 16, a learned BPE merges file: `tests/test_torch_mirror.py`);
-    (paths, seconds, bytes)."""
+def with_tiny_zoe(cfg):
+    """`cfg` on the zoe branch with the JAX tests' tiny ZoeDepth-NK tower
+    (`tests/test_torch_mirror.py`)."""
+    _tests_on_path()
+    from test_torch_mirror import with_tiny_zoe as tiny
+
+    return tiny(cfg)
+
+
+def _tests_on_path():
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
+
+
+def mirror_weights(cfg, root):
+    """Reference-layout checkpoint files for `cfg` under `root` (a
+    semantic dump with the text tower, a depth dump of cfg's branch with
+    LoRA adapters, DA-V2 r=16 or ZoeDepth-NK r=8, a learned BPE merges
+    file: `tests/test_torch_mirror.py`); (paths, seconds, bytes)."""
+    _tests_on_path()
     from test_torch_mirror import write_weights_dir
 
     t = time.perf_counter()
@@ -1690,29 +1762,35 @@ def presets_phase(frame_ms):
                             launches=l_launches), fast=fast, launches=launches)
 
 
-def precision_phase(variables):
-    """The bf16 forward against the fp32 one at full VEON-B width on the
-    card, the converted weights of phase 15 in both, the same example
-    frame: flip rate < 0.15, feat_occ cosine > 0.98, occupancy-probability
-    MAD < 0.05 (the CPU battery's bounds, `tests/test_precision.py`)."""
+def precision_phase(variables, preset="veon_b"):
+    """The bf16 forward against the fp32 one at full width on the card
+    (VEON-B, or `preset`), the converted weights of phase 15 (23 for
+    veon_b_zoe) in both, the same example frame: flip rate < 0.15,
+    feat_occ cosine > 0.98, occupancy-probability MAD < 0.05 (the CPU
+    battery's bounds, `tests/test_precision.py`); and the depth
+    estimates' median relative difference, reported."""
     from veon_tpu_torch.configs import presets
     from veon_tpu_torch.entry import entry
     from veon_tpu_torch.eval.precision import precision_battery
 
-    outs = {}
+    outs, depth = {}, {}
     for dt in ("float32", "bfloat16"):
-        server, (imgs, depth_imgs) = entry(presets.veon_b(compute_dtype=dt), device="cuda",
-                                           variables=variables)
+        server, (imgs, depth_imgs) = entry(getattr(presets, preset)(compute_dtype=dt),
+                                           device="cuda", variables=variables)
         outs[dt] = server.outputs(imgs, depth_imgs)
+        with torch.no_grad():
+            depth[dt] = server.model.estimate_depth(depth_imgs).float()
         membership = server.membership
         del server
         torch.cuda.empty_cache()
+    depth_rel = float(((depth["bfloat16"] - depth["float32"]).abs()
+                       / depth["float32"].abs().clamp_min(1e-3)).median())
     r = precision_battery(outs["float32"], outs["bfloat16"], membership)
-    log(f"bf16 vs fp32, veon_b full width, converted weights: {r} (bounds: flip < 0.15, "
-        f"cos > 0.98, MAD < 0.05)")
+    log(f"bf16 vs fp32, {preset} full width, converted weights: {r}, depth median relative "
+        f"difference {depth_rel:.4g} (bounds: flip < 0.15, cos > 0.98, MAD < 0.05)")
     if not (r["flip_rate"] < 0.15 and r["feat_cos"] > 0.98 and r["occ_prob_mad"] < 0.05):
-        raise AssertionError(f"bf16 divergence beyond the CPU battery's bounds: {r}")
-    return r
+        raise AssertionError(f"{preset} bf16 divergence beyond the CPU battery's bounds: {r}")
+    return dict(r, depth_median_rel=depth_rel)
 
 
 # ---------------------------------------------------------------------------
@@ -2016,6 +2094,288 @@ def eval_loop_phase(root, frames=8):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-25: the ZoeDepth-NK depth branch (veon_b_zoe / veon_l_zoe)
+# ---------------------------------------------------------------------------
+
+
+def attention_kernels(fn):
+    """The fused attention kernels one call of fn runs (names with fmha,
+    flash, sdpa or attention in them), with their device ms, from the
+    profiler; SDPA's math backend runs none (a bmm, softmax, bmm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.key_averages():
+        name = e.key.lower()
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                s in name for s in ("fmha", "flash", "sdpa", "attention")):
+            found[e.key[:90]] = (round(e.self_device_time_total / 1e3, 3), e.count)
+    return found
+
+
+def zoe_breakdown(server, imgs, depth_imgs):
+    """Where a zoe frame's time goes, from one more frame: CUDA events around
+    each tower, the depth tower split into the BEiT trunk, the MiDaS decoder
+    and the bins head; then one profiled frame (busy share, top kernels) and
+    the attention kernels of one depth-tower call (the SDPA backend that
+    takes BEiT's float bias)."""
+    model = server.model
+    marks = {}
+    mods = {name: getattr(model, name) for name in STAGES}
+    hooks = hook_stages(dict(mods, zoe_trunk=model.depth.core.pretrained,
+                             zoe_core=model.depth.core), marks)
+    start = _event()
+    server(imgs, depth_imgs)
+    end = _event()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    total = start.elapsed_time(end)
+    s = stage_ms(marks)
+    stages = {k: s[k] for k in STAGES}
+    stages["other"] = total - sum(stages.values())
+    stages["depth_trunk"] = s["zoe_trunk"]
+    stages["depth_decoder"] = s["zoe_core"] - s["zoe_trunk"]
+    stages["depth_bins_head"] = s["depth"] - s["zoe_core"]
+    log(f"zoe stage ms (device timeline, frame {total:.3f} ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    prof = profiled(lambda: server(imgs, depth_imgs), 12)
+    with torch.no_grad():
+        attn = attention_kernels(lambda: model.estimate_depth(depth_imgs))
+    log(f"zoe depth tower's attention kernels (name: device ms, count): {attn or 'none: math'}")
+    return dict(prof, stage_ms=stages, frame_events_ms=total, depth_attention_kernels=attn)
+
+
+def zoe_main_path():
+    """Phase 21, a main path: `main_path` on `presets.veon_b_zoe(compute_dtype=
+    "bfloat16")` (3 frames, kernel #1 once each), its depth input 256x704
+    and depth estimate finite, then where a frame's time goes
+    (`zoe_breakdown`)."""
+    from veon_tpu_torch.configs import presets
+
+    server, (imgs, depth_imgs), res = main_path(presets.veon_b_zoe(compute_dtype="bfloat16"))
+    if tuple(depth_imgs.shape) != (1, 1, 6, 256, 704, 3):
+        raise AssertionError(f"zoe depth input {tuple(depth_imgs.shape)}, expected 256x704")
+    with torch.no_grad():
+        depth = server.model.estimate_depth(depth_imgs).float()
+    if not torch.isfinite(depth).all() or tuple(depth.shape) != (1, 1, 6, 256, 704):
+        raise AssertionError(f"zoe depth {tuple(depth.shape)} not finite")
+    res["depth_range_m"] = (float(depth.min()), float(depth.max()))
+    res["breakdown"] = zoe_breakdown(server, imgs, depth_imgs)
+    del server
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoe_weights_phase():
+    """Phase 23, weights day for zoe, a main path: full-width
+    reference-layout files for veon_b_zoe (the SAN ViT-B dump with the text
+    tower, a ZoeDepth-NK dump with LoRA r=8 at trained scales under
+    depth_pretrain/zoedepth_pretrain.pth, the BPE merges), every key read
+    but the ignored ones (the BEiT index buffers among them); read +
+    convert and load timed; a `TensorServer` with the handler of `serve
+    --preset veon_b_zoe` (fp32) answering 2 F=1 requests (kernel #1 once
+    each, pred equal to its `FrameServer`), then one of `serve --preset
+    veon_b_zoe --num-temporal 2` with the zoe dump alone (the semantic dump
+    is a T=1 one) answering 3 drive requests (#1 once each, pred equal to
+    a direct `TemporalSession` replay); `selftest --preset
+    veon_b_zoe --weights-dir` (#3 once); then 2 veon_l_zoe fp32 frames with
+    the converted zoe tower and seeded SAN-L families (#1 once each).
+    Returns the converted variables for phase 24 (`precision_phase`)."""
+    import contextlib
+    import io
+
+    from veon_tpu_torch.ckpt.from_jax import load_families
+    from veon_tpu_torch.cli.main import build_serve_handler, load_checkpoints, main as cli_main
+    from veon_tpu_torch.cli.main import parser
+    from veon_tpu_torch.cli.shapes import example_batch_full, example_drive
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import build_model, entry
+    from veon_tpu_torch.nn.text import ClipTokenizer
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.serve.server import TensorServer
+    from veon_tpu_torch.serve.streaming import TemporalSession
+
+    cfg = presets.veon_b_zoe()
+    base = phase_base()
+    root = tempfile.mkdtemp(prefix="veon_zoe_ckpts")
+
+    def args(T):
+        # the semantic dump holds a T=1 occupancy head: at T=2 the CLI seeds
+        # the semantic families and loads the zoe dump alone
+        san = ["--load-from", paths["san"]] if T == 1 else []
+        return parser().parse_args(["serve", "--preset", "veon_b_zoe", "--num-temporal", str(T),
+                                    *san, "--depth-load-from", paths["depth"],
+                                    "--bpe-path", paths["bpe"]])
+
+    served = {}
+    try:
+        paths, write_s, nbytes = mirror_weights(cfg, root)
+        if not paths["depth"].endswith(os.path.join("depth_pretrain", "zoedepth_pretrain.pth")):
+            raise AssertionError(f"zoe depth file {paths['depth']}")
+        n_keys, unread = unread_keys(cfg, paths)
+        if unread:
+            raise AssertionError(f"veon_b_zoe checkpoint keys no converter reads: {unread[:8]}")
+        t = time.perf_counter()
+        variables, _extras = load_checkpoints(cfg, paths["san"], paths["depth"])
+        convert_s = time.perf_counter() - t
+        t = time.perf_counter()
+        model = build_model(cfg, torch.device("cuda"), 0, variables)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        del model
+        torch.cuda.empty_cache()
+        tok = ClipTokenizer(paths["bpe"])
+        for T in (1, 2):
+            t = time.perf_counter()
+            handler, required, expect, exclusive = build_serve_handler(args(T))
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t
+            if handler.cfg.compute_dtype != "float32" or "(1, 1, 6, 256, 704, 3)" not in expect:
+                raise AssertionError(f"zoe T={T} handler: {handler.cfg.compute_dtype}, {expect}")
+            if T == 1:
+                imgs, depth_imgs, _ = example_batch_full(cfg, device="cpu")
+                reqs = [{"imgs": imgs.numpy(), "depth_imgs": depth_imgs.numpy()}] * 2
+            else:
+                _rig, drive = example_drive(handler.cfg, 3, device="cpu", seed=0)
+                reqs = [{k: v.numpy() for k, v in r.items()} for r in drive]
+            reqs = [dict(r, text_tokens=tok.tokenize(["a parked red car"])) for r in reqs]
+            d = socket_dir()
+            srv = TensorServer(handler, os.path.join(d, "s.sock"), required=required,
+                               exclusive=exclusive)
+            srv.start()
+            outs, rt, per_req = [], [], []
+            try:
+                with TensorClient(srv.socket_path) as c:
+                    kernels = reset_launches()
+                    for i, r in enumerate(reqs):
+                        o, ms, n = _served(c, kernels, r, f"zoe T={T} request {i}")
+                        outs.append(o)
+                        rt.append(ms)
+                        per_req.append(n)
+            finally:
+                srv.stop()
+                shutil.rmtree(d, ignore_errors=True)
+            if T == 1:
+                want = [handler.server(imgs.cuda(), depth_imgs.cuda()).to(torch.uint8).cpu()
+                        .numpy()] * len(reqs)
+                with torch.no_grad():
+                    attn32 = attention_kernels(
+                        lambda: handler.server.model.estimate_depth(depth_imgs.cuda()))
+            else:
+                s = handler.session
+                direct = TemporalSession(s.model, s.ov_weight, s.membership, rig_metas=s.rig_metas)
+                want = [direct.infer(torch.from_numpy(r["imgs"]).cuda(),
+                                     torch.from_numpy(r["depth_imgs"]).cuda(),
+                                     {"lidarego2global": torch.from_numpy(
+                                         r["lidarego2global"]).cuda()})["pred"].cpu().numpy()
+                        for r in reqs]
+                del s, direct
+            for i, (o, w) in enumerate(zip(outs, want)):
+                if not np.array_equal(o["pred"], w):
+                    raise AssertionError(f"zoe T={T} request {i}: pred differs from the direct "
+                                         f"call in {int((o['pred'] != w).sum())} voxels")
+                if not np.isfinite(o["retrieval"]).all():
+                    raise AssertionError(f"zoe T={T} request {i}: retrieval not finite")
+            served[f"t{T}"] = dict(setup_s=setup_s, server_ms=[float(o["server_ms"][0])
+                                                               for o in outs],
+                                   round_trip_ms=rt, launches_per_request=per_req,
+                                   classes=np.bincount(outs[-1]["pred"].reshape(-1),
+                                                       minlength=18).tolist())
+            del handler, srv
+            gc.collect()
+            torch.cuda.empty_cache()
+        kernels = reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            drill = cli_main(["selftest", "--preset", "veon_b_zoe", "--weights-dir", root])
+        drill_launches = {k: fn.launches for k, fn in kernels.items()}
+        expect_launches(drill_launches, {k: int(k == "bev_pool_sorted2") for k in kernels},
+                        "selftest --preset veon_b_zoe --weights-dir")
+        steps = [ln for ln in out.getvalue().splitlines() if ln.startswith("[")]
+        if [s[:5] for s in steps] != ["[1/5]", "[2/5]", "[4/5]", "[5/5]"] \
+                or "zoedepth_pretrain.pth" not in steps[0] or "WARNING" in out.getvalue():
+            raise AssertionError(f"zoe selftest --weights-dir step lines: {steps}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lcfg = presets.veon_l_zoe()
+    server, (imgs, depth_imgs) = entry(lcfg, device="cuda", seed=0)
+    load_families(server.model, {"params": {"depth": variables["params"]["depth"]}})
+    l_ms, l_launches = _frames(server, imgs, depth_imgs, 2)
+    expect_launches(l_launches, {k: 2 * int(k == "bev_pool_pooled") for k in l_launches},
+                    "veon_l_zoe")
+    for k, v in server.outputs(imgs, depth_imgs).items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"veon_l_zoe output {k} not finite")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"zoe weights day veon_b_zoe fp32: files written in {write_s:.1f} s ({nbytes} B), "
+        f"{n_keys} keys all read but the ignored (relative_position_index, "
+        f"num_batches_tracked, refinenet4's resConfUnit1, the text mask); read + convert "
+        f"{convert_s:.3f} s, load onto the card {load_s:.3f} s; "
+        + "; ".join(f"{k} server: setup {v['setup_s']:.1f} s, server_ms "
+                    f"{[round(x, 3) for x in v['server_ms']]}, round trip ms "
+                    f"{[round(x, 3) for x in v['round_trip_ms']]}, kernel #1 per request "
+                    f"{v['launches_per_request']}" for k, v in served.items())
+        + f"; pred equal to the direct calls; the fp32 depth tower's attention kernels "
+        f"{attn32 or 'none: math'}; selftest --weights-dir: mIoU {drill['miou']:.4f}, "
+        f"launches {drill_launches}; veon_l_zoe fp32 frames ms {[round(x, 3) for x in l_ms]}, "
+        f"launches {l_launches}")
+    for ln in steps:
+        log("  " + ln)
+    return variables, dict(write_s=write_s, file_bytes=nbytes, keys=n_keys, convert_s=convert_s,
+                           load_s=load_s, served=served, depth_attention_kernels_fp32=attn32,
+                           drill_miou=drill["miou"],
+                           drill_steps=steps, drill_launches=drill_launches,
+                           veon_l_zoe=dict(frame_ms=l_ms, launches=l_launches), peak_bytes=peak,
+                           launches_pooled=sum(sum(v["launches_per_request"])
+                                               for v in served.values())
+                           + l_launches["bev_pool_pooled"])
+
+
+def zoe_eval_phase(root, frames=4):
+    """Phase 25, a main path: `test --preset veon_b_zoe` (fp32, seeded
+    weights) on the first `frames` frames of the shard, kernel #3 exactly
+    once per frame; then `cache-depth --preset veon_b_zoe` on 2 frames
+    ((256, 704) float32 per camera, idempotent)."""
+    pkl = shard_paths(root, frames, "zoe_eval")
+    with captured() as rec:
+        res, out, s, launches = run_cli(["test", "--preset", "veon_b_zoe", "--data-root", root,
+                                         "--ann", pkl, "--workers", "2"])
+    line = next(ln for ln in out.splitlines() if ln.startswith("inference done"))
+    expect_launches(launches, {n: frames if n == "bev_pool_sorted2" else 0 for n in launches},
+                    "test --preset veon_b_zoe")
+    g = rec.grids[0]
+    if g.shape != (frames, 200, 200, 16) or g.max() > 17 or not np.isfinite(res["mIoU"]):
+        raise AssertionError(f"zoe test: grids {g.shape} max {g.max()}, mIoU {res['mIoU']}")
+    log(f"test veon_b_zoe fp32 ({frames} frames): {line}; {s:.3f} s with the model build; "
+        f"mIoU {res['mIoU']:.4f}; launches {launches}")
+    cache = os.path.join(root, "zoe_depth_cache")
+    argv = ["cache-depth", "--preset", "veon_b_zoe", "--data-root", root, "--ann",
+            shard_paths(root, 2, "zoe_cache"), "--workers", "2", "--cache-dir", cache]
+    n, _out, cs, _l = run_cli(argv)
+    files = [os.path.join(cache, t[:2], t, f"{t}-{c}.npy") for t in ("tok0", "tok1") for c in CAMS]
+    for f in files:
+        d = np.load(f)
+        if d.shape != (256, 704) or d.dtype != np.float32 or not np.isfinite(d).all():
+            raise AssertionError(f"zoe cache-depth {f}: {d.shape} {d.dtype}")
+    again = run_cli(argv)[0]
+    if n != len(files) or again != 0:
+        raise AssertionError(f"zoe cache-depth wrote {n} then {again} files, expected 12 then 0")
+    log(f"cache-depth veon_b_zoe fp32: {n} files in {cs:.3f} s, (256, 704) float32; a second "
+        f"run wrote {again}")
+    return dict(miou=res["mIoU"], seconds=s, line=line, launches=launches,
+                cache_files=n, cache_seconds=cs)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2023,6 +2383,7 @@ def main():
     from veon_tpu_torch.configs import presets
     from veon_tpu_torch.ops import native
 
+    script_t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -2069,6 +2430,18 @@ def main():
     del variables
     gc.collect()
     torch.cuda.empty_cache()
+    zoe_tiny = small_parity_phase(with_tiny_zoe(presets.veon_tiny_test()))
+    zoe_f1 = zoe_main_path()
+    _session, _reqs, zoe_t2 = temporal_main_path(
+        presets.veon_b_zoe(num_temporal=2, compute_dtype="bfloat16"))
+    del _session, _reqs
+    if zoe_t2["depth_input"] != (256, 704):
+        raise AssertionError(f"zoe drive depth input {zoe_t2['depth_input']}")
+    variables, zoe_weights = zoe_weights_phase()
+    zoe_precision = precision_phase(variables, "veon_b_zoe")
+    del variables
+    gc.collect()
+    torch.cuda.empty_cache()
     from veon_tpu_torch.utils.loader_bench import make_frames
 
     shard = tempfile.mkdtemp(prefix="veon_shard")
@@ -2079,21 +2452,28 @@ def main():
         data_plane = data_plane_phase(shard)
         eval_tiny = eval_tiny_parity_phase(shard)
         eval_loop = eval_loop_phase(shard)
+        zoe_eval = zoe_eval_phase(shard)
     finally:
         shutil.rmtree(shard, ignore_errors=True)
 
     # launches on the main paths: the F=1 frames, the requests served from
-    # converted weights and the new presets' frames (#1); the train steps
-    # (#2, #3), the weights drill's forward and the eval loop's frames (#3)
+    # converted weights and the new presets' frames, the zoe frames, calls
+    # and served requests (#1); the train steps (#2, #3), the weights
+    # drills' forwards and the eval loops' frames, zoe's included (#3)
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
                                 + sum(weights["launches_per_request"])
-                                + new_presets["launches"]["bev_pool_pooled"]),
+                                + new_presets["launches"]["bev_pool_pooled"]
+                                + zoe_f1["launches"]["bev_pool_pooled"]
+                                + zoe_t2["launches"]["bev_pool_pooled"]
+                                + zoe_weights["launches_pooled"]),
             "bev_pool_sorted": (sorted_res["full_bf16"],
                                 train["full"]["launches"]["bev_pool_sorted"]),
             "bev_pool_sorted2": (sorted_res["band_spray_bf16"],
                                  train["banded"]["launches"]["bev_pool_sorted2"]
                                  + weights["drill_launches"]["bev_pool_sorted2"]
-                                 + eval_loop["launches_sorted2"]),
+                                 + eval_loop["launches_sorted2"]
+                                 + zoe_weights["drill_launches"]["bev_pool_sorted2"]
+                                 + zoe_eval["launches"]["bev_pool_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
                          + temporal["launches"]["ln_dense"])}
@@ -2113,12 +2493,16 @@ def main():
                    "serve_t2": serve_t2, "metrics": metrics, "weights_tiny": weights_tiny,
                    "weights": weights, "presets": new_presets, "precision": precision,
                    "data_plane": data_plane, "eval_tiny_parity": eval_tiny,
-                   "eval_loop": eval_loop,
-                   "builds": {k: v["seconds"] for k, v in builds.items()}},
+                   "eval_loop": eval_loop, "zoe_tiny_parity": zoe_tiny, "zoe_f1": zoe_f1,
+                   "zoe_t2": zoe_t2, "zoe_weights": zoe_weights,
+                   "zoe_precision": zoe_precision, "zoe_eval": zoe_eval,
+                   "builds": {k: v["seconds"] for k, v in builds.items()},
+                   "script_s": time.perf_counter() - script_t0},
                   f, indent=1)
     for r, _ in rows.values():
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "library_ms", "bound_ms")):
             raise AssertionError("non-finite timing")
+    log(f"whole script: {time.perf_counter() - script_t0:.1f} s wall")
     log(smi)
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,9 +6,14 @@ and `convert_dav2` with and without LoRA equal to JAX's leaf for leaf
 strictly by the port and of the JAX model's structure; `merge_lora`,
 `fuse_conv_bn`, `merge_params`, `revise_keys` and `load_torch_state_dict`
 equal to JAX's; a forward with conv-BN folded equal to the unfolded one
-within 1e-5. Then the presets field by field, and a patch-14 config whose
-HSA blocks take the CLIP grid of one layer and add another's, loaded from
-mirror dumps on both sides, against JAX's forward within 2e-4."""
+within 1e-5. `convert_zoedepth` with and without LoRA bit-equal to JAX's,
+every key read but the index buffers, folded and loaded strictly into the
+port's zoe tower with JAX's depth; `load_checkpoints` routing a zoe
+preset's depth dump to it and `resolve_weights_dir` picking the zoe file.
+Then the presets field by field (the zoe presets included), and a
+patch-14 config whose HSA blocks take the CLIP grid of one layer and add
+another's, loaded from mirror dumps on both sides, against JAX's forward
+within 2e-4."""
 
 import dataclasses
 
@@ -17,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from test_ckpt_full_convert import IGNORED_KEYS, IGNORED_PREFIXES, IGNORED_SUFFIXES, TrackingSD
+from test_ckpt_full_convert import (IGNORED_KEYS, IGNORED_PREFIXES, IGNORED_SUFFIXES,
+                                    ZOE_IGNORED_SUFFIXES, TrackingSD)
 from test_torch_common import np_tree, to_np
-from test_torch_mirror import spread, write_weights_dir
-from ref_layout_mirror import make_dav2_sd, make_san_semantic_sd
+from test_torch_mirror import spread, with_tiny_zoe, write_weights_dir
+from test_torch_zoedepth import tiny_zoe
+from ref_layout_mirror import make_dav2_sd, make_san_semantic_sd, make_zoedepth_sd
 
 from veon_tpu.ckpt import convert as J
 from veon_tpu.configs import presets as jpresets
@@ -113,6 +120,84 @@ def test_dav2_equals_reference_and_loads_strictly(dav2_dumps, lora):
     load_from_jax(model.depth, {"params": merged})
 
 
+@pytest.mark.parametrize("r", [0, 2])
+def test_zoedepth_equals_reference_and_gives_its_depth(r):
+    """The converted ZoeDepth-NK dump equals JAX's tree leaf for leaf, every
+    key read but the index buffers and counters; folded (scale 1 / r), it
+    loads strictly into the port's tower, whose depth equals JAX's tower
+    applying the adapters unfolded, at trained scales (`spread`)."""
+    from veon_tpu.configs.base import ZoeConfig as JZoeConfig
+    from veon_tpu.nn.zoedepth import ZoeDepthNK as JaxZoe
+    from veon_tpu_torch.nn.zoedepth import ZoeDepthNK
+
+    jzc = dataclasses.replace(tiny_zoe(JZoeConfig), use_lora=r > 0, lora_r=r or 2)
+    pzc = dataclasses.replace(tiny_zoe(), use_lora=r > 0, lora_r=r or 2)
+    raw = spread(make_zoedepth_sd(pzc, lora_r=r))
+    sd = TrackingSD(raw)
+    got = P.convert_zoedepth(sd, pzc)
+    unread = sorted(k for k in sd if k not in sd.read and not k.endswith(ZOE_IGNORED_SUFFIXES)
+                    and not k.startswith(IGNORED_PREFIXES))
+    assert unread == []
+    want = J.convert_zoedepth(dict(raw), jzc)
+    assert_tree_equal(got, want)
+    merged = P.merge_lora(got, 1.0)
+    assert_tree_equal(merged, J.merge_lora(want, 1.0))
+    assert ("lora_A" in got["core"]["readout_0"]["project"]) == (r > 0)
+    tower = ZoeDepthNK(pzc)
+    load_from_jax(tower, {"params": merged})
+    img = np.random.default_rng(0).standard_normal((1, 32, 88, 3)).astype(np.float32)
+    ref = jax.jit(JaxZoe(cfg=jzc).apply)({"params": want}, img)
+    with torch.no_grad():
+        depth = to_np(tower(torch.from_numpy(img)))
+    assert np.isfinite(depth).all() and depth.std() > 0
+    np.testing.assert_allclose(depth, np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+def test_load_checkpoints_routes_a_zoe_preset_to_convert_zoedepth(tmp_path):
+    """--depth-load-from on a zoe preset converts through convert_zoedepth
+    and folds its adapters (the counterpart of
+    `test_build_model_and_params_routes_zoe_depth_ckpt`); DA-V2 presets keep
+    convert_dav2."""
+    from veon_tpu_torch.cli.main import build_model_and_params, load_checkpoints
+    from veon_tpu_torch.nn.zoedepth import ZoeDepthNK
+
+    cfg = with_tiny_zoe(presets.veon_tiny_test())
+    sd = make_zoedepth_sd(cfg.zoe, lora_r=cfg.zoe.lora_r)
+    path = str(tmp_path / "zoe.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    variables, extras = load_checkpoints(cfg, depth_ckpt=path)
+    assert list(variables["params"]) == ["depth"] and extras == {}
+    assert_tree_equal(variables["params"]["depth"],
+                      P.merge_lora(P.convert_zoedepth(sd, cfg.zoe), 1.0))
+    model, _tower, ovw, _m, _e = build_model_and_params(cfg, depth_ckpt=path, device="cpu")
+    assert isinstance(model.depth, ZoeDepthNK)
+    dimgs = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 1, 2, 32, 88, 3)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.isfinite(model.estimate_depth(dimgs)).all()
+    with pytest.raises(KeyError):  # a DA-V2 preset reads it as a DA-V2 dump
+        load_checkpoints(presets.veon_tiny_test(), depth_ckpt=path)
+
+
+def test_resolve_weights_dir_picks_the_zoe_file(tmp_path):
+    from veon_tpu_torch.cli.main import resolve_weights_dir
+
+    for rel in ("clipsan/SAN_ViT-B.pth", "clipsan/SAN_ViT-L.pth",
+                "depth_pretrain/depthanythingv2_pretrain_large.pth"):
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_bytes(b"")
+    root = str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="zoedepth_pretrain.pth"):
+        resolve_weights_dir(root, "veon_b_zoe")
+    (tmp_path / "depth_pretrain" / "zoedepth_pretrain.pth").write_bytes(b"")
+    for preset, vit in (("veon_b_zoe", "B"), ("veon_l_zoe", "L")):
+        got = resolve_weights_dir(root, preset)
+        assert got["depth"].endswith("depth_pretrain/zoedepth_pretrain.pth")
+        assert got["san"].endswith(f"SAN_ViT-{vit}.pth")
+    assert resolve_weights_dir(root, "veon_b")["depth"].endswith(
+        "depthanythingv2_pretrain_large.pth")
+
+
 def test_merge_params_and_revise_keys_equal_reference(san_dumps):
     sd = san_dumps[1]
     rules = [(r"^clip_", "semantic.clip_"), (r"\.ln_1\.", ".norm_a.")]
@@ -198,7 +283,8 @@ def test_entry_refuses_a_partial_tree_and_only_the_cli_seeds_it(converted_tiny, 
     assert any(not torch.equal(seeded[n], loaded[n]) for n in got if n.startswith(family + "."))
 
 
-PRESETS = ["veon_b", "veon_b_fast", "veon_b_fast2", "veon_l", "veon_tiny_test"]
+PRESETS = ["veon_b", "veon_b_fast", "veon_b_fast2", "veon_l", "veon_b_zoe", "veon_l_zoe",
+           "veon_tiny_test"]
 
 
 @pytest.mark.parametrize("name", PRESETS)
@@ -216,15 +302,18 @@ def test_presets_equal_reference_field_by_field(name):
             assert getattr(port.depth.vit, g.name) == getattr(ref.depth.vit, g.name), g.name
         assert port.depth.intermediate_layer_idx == ref.depth.intermediate_layer_idx
         assert port.feat_hw == ref.feat_hw
-    if name == "veon_l":  # fp32 only, as in JAX
+        assert port.zoe == port.zoe.__class__(**dataclasses.asdict(ref.zoe))
+        assert port.depth_mode == ref.depth_mode == ("zoedepth" if "zoe" in name
+                                                     else "depthanythingv2")
+    if name in ("veon_l", "veon_l_zoe"):  # fp32 only, as in JAX
         with pytest.raises(TypeError):
-            presets.veon_l(compute_dtype="bfloat16")
+            getattr(presets, name)(compute_dtype="bfloat16")
 
 
 def test_cli_accepts_the_new_presets():
     from veon_tpu_torch.cli.main import build_cfg, parser
 
-    for name in ("veon_l", "veon_b_fast", "veon_b_fast2"):
+    for name in ("veon_l", "veon_b_fast", "veon_b_fast2", "veon_b_zoe", "veon_l_zoe"):
         args = parser().parse_args(["serve", "--preset", name, "--num-temporal", "2"])
         cfg = build_cfg(args)
         assert cfg == getattr(presets, name)(num_temporal=2) and cfg.compute_dtype == "float32"

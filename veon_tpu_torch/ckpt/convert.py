@@ -2,8 +2,9 @@
 model (counterpart of `veon_tpu/ckpt/convert.py`, the same functions and
 layout rules, without JAX).
 
-The four checkpoint dialects (open_clip CLIP, detectron2 SAN, the timm
-side ViT, DINOv2 with LoRA + DPT) in the reference's dual-checkpoint
+The five checkpoint dialects (open_clip CLIP, detectron2 SAN, the timm
+side ViT, DINOv2 with LoRA + DPT, ZoeDepth-NK on MiDaS BEiT with LoRA)
+in the reference's dual-checkpoint
 convention: a SAN/VEON semantic dump (`--load-from`, keys after the
 `semantic_model.model.` strip) and a depth dump (`--depth-load-from`).
 
@@ -18,9 +19,8 @@ for leaf. Layout rules:
                                            by `from_jax.py`)
   LayerNorm weight/bias -> scale/bias;    BN running stats -> batch_stats
   MHA in_proj_weight (3E,E) -> (E,3E);    LoRA A (r,in)->(in,r), B (o,r)->(r,o)
-The port's depth tower carries no adapters: `merge_lora` folds a depth-
+The port's depth towers carry no adapters: `merge_lora` folds a depth-
 pretrain dump's into the base kernels (scale lora_alpha / r).
-The ZoeDepth dialect (`convert_zoedepth`) comes with the ZoeDepth branch.
 
 `revise_keys`, `merge_params` and `fuse_conv_bn` are kept only as
 counterparts of the JAX module's, held equal to them by
@@ -39,7 +39,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..configs.base import DepthConfig, SANConfig, VeonConfig
+from ..configs.base import DepthConfig, SANConfig, VeonConfig, ZoeConfig
 
 SD = Dict[str, np.ndarray]
 
@@ -493,6 +493,87 @@ def convert_dav2(sd: SD, cfg: DepthConfig) -> Dict:
     head["output_conv2_0"] = _conv2d(sd, "depth_head.scratch.output_conv2.0")
     head["output_conv2_2"] = _conv2d(sd, "depth_head.scratch.output_conv2.2")
     return {"pretrained": trunk, "depth_head": head}
+
+
+def _beit_block(sd, key):
+    """timm BEiT block (MiDaS backbone) -> nn.zoedepth.BeitBlock params;
+    the buffer relative_position_index is not read (the port computes it)."""
+    return {
+        "norm1": _ln(sd, _j(key, "norm1")),
+        "attn": {
+            "qkv": _lora_lin(sd, _j(key, "attn.qkv")),
+            "proj": _lin(sd, _j(key, "attn.proj")),
+            "q_bias": sd[_j(key, "attn.q_bias")],
+            "v_bias": sd[_j(key, "attn.v_bias")],
+            "relative_position_bias_table": sd[_j(key, "attn.relative_position_bias_table")],
+        },
+        "gamma_1": sd[_j(key, "gamma_1")],
+        "norm2": _ln(sd, _j(key, "norm2")),
+        "mlp_fc1": _lin(sd, _j(key, "mlp.fc1")),
+        "mlp_fc2": _lin(sd, _j(key, "mlp.fc2")),
+        "gamma_2": sd[_j(key, "gamma_2")],
+    }
+
+
+def convert_zoedepth(sd: SD, cfg: ZoeConfig) -> Dict:
+    """ZoeDepthNKAdaptor state dict -> nn.zoedepth.ZoeDepthNK params.
+
+    Torch layout (zoedepth_nk_v1.py): core.core.pretrained.model.* (timm
+    BEiT), core.core.pretrained.act_postprocessN (readout + resize),
+    core.core.scratch.* (RN convs, refinenets, output_conv), conv2,
+    seed_bin_regressors.kitti, seed_projector, projectors.N,
+    attractors.kitti.N, conditional_log_binomial.kitti.
+    """
+    p = "core.core.pretrained.model."
+    trunk: Dict[str, Any] = {
+        "patch_embed": _conv2d(sd, f"{p}patch_embed.proj"),
+        "cls_token": sd[f"{p}cls_token"],
+    }
+    for i in range(cfg.depth):
+        trunk[f"blocks_{i}"] = _beit_block(sd, f"{p}blocks.{i}")
+
+    core: Dict[str, Any] = {"pretrained": trunk}
+    ap = "core.core.pretrained."
+    for i in range(4):
+        core[f"readout_{i}"] = {
+            "project": _lora_lin(sd, f"{ap}act_postprocess{i + 1}.0.project.0")}
+        core[f"project_{i}"] = _conv2d(sd, f"{ap}act_postprocess{i + 1}.3")
+    core["resize_0"] = _convT2d(sd, f"{ap}act_postprocess1.4")
+    core["resize_1"] = _convT2d(sd, f"{ap}act_postprocess2.4")
+    core["resize_3"] = _conv2d(sd, f"{ap}act_postprocess4.4")
+    sc = "core.core.scratch."
+    for i in range(4):
+        core[f"layer{i + 1}_rn"] = _conv2d(sd, f"{sc}layer{i + 1}_rn", bias=False)
+    for i in (1, 2, 3, 4):
+        rk = f"{sc}refinenet{i}"
+        core[f"refinenet{i}"] = {
+            "rcu2": {"conv1": _conv2d(sd, f"{rk}.resConfUnit2.conv1"),
+                     "conv2": _conv2d(sd, f"{rk}.resConfUnit2.conv2")},
+            "out_conv": _conv2d(sd, f"{rk}.out_conv"),
+        }
+        if i != 4:  # refinenet4's resConfUnit1 is dead weight (no skip input)
+            core[f"refinenet{i}"]["rcu1"] = {
+                "conv1": _conv2d(sd, f"{rk}.resConfUnit1.conv1"),
+                "conv2": _conv2d(sd, f"{rk}.resConfUnit1.conv2")}
+    core["out_conv1"] = _conv2d(sd, f"{sc}output_conv.0")
+    core["out_conv2"] = _conv2d(sd, f"{sc}output_conv.2")
+    core["out_conv3"] = _conv2d(sd, f"{sc}output_conv.4")
+
+    def conv_mlp(key):
+        return {"fc1": _conv2d(sd, f"{key}.0"), "fc2": _conv2d(sd, f"{key}.2")}
+
+    out: Dict[str, Any] = {
+        "core": core,
+        "conv2": _conv2d(sd, "conv2"),
+        "seed_bin_regressor": conv_mlp("seed_bin_regressors.kitti._net"),
+        "seed_projector": conv_mlp("seed_projector._net"),
+        "clb_fc1": _conv2d(sd, "conditional_log_binomial.kitti.mlp.0"),
+        "clb_fc2": _conv2d(sd, "conditional_log_binomial.kitti.mlp.2"),
+    }
+    for i in range(4):
+        out[f"projector_{i}"] = conv_mlp(f"projectors.{i}._net")
+        out[f"attractor_{i}"] = conv_mlp(f"attractors.kitti.{i}._net")
+    return out
 
 
 def convert_san_semantic(sd: SD, cfg: VeonConfig) -> Tuple[Dict, Dict, Dict]:

@@ -12,6 +12,8 @@ as nested dicts of numpy arrays and inverts the layout rules of
   Embed embedding (rows, features)    -> weight, as is
   BatchNorm batch_stats mean / var    -> running_mean / running_var
   nn.scan stacks (leading layer axis) -> ModuleList index
+  other params (LayerScales, cls tokens, BEiT's q/v biases and relative-
+  position tables)                    -> the parameter of that name, as is
 The port names its modules as the flax tree does, with one numeric path
 component where a scan stack is unstacked. Every JAX leaf must be
 consumed; with strict=True every port entry must be filled too, while

@@ -80,15 +80,21 @@ def load_checkpoints(cfg, san_ckpt=None, depth_ckpt=None):
     """(variables, extras) from the reference's checkpoints: the converted
     families of a SAN/VEON semantic dump (clip_visual, rec_head,
     side_adapter, hsa, alignnet with its batch_stats, lift_fusion) and of a
-    DA-V2 dump (depth, its LoRA adapters folded in with scale
-    lora_alpha / r); variables None without either file. extras holds the
-    semantic dump's text tower, bg_embed and logit_scale where it has them."""
+    depth dump in the preset's branch (depth: a DA-V2 dump, its LoRA
+    adapters folded in with scale lora_alpha / r, or for a zoe preset a
+    ZoeDepth-NK dump, folded with scale 1 / r, the adapters' alpha 1);
+    variables None without either file. extras holds the semantic dump's
+    text tower, bg_embed and logit_scale where it has them."""
     params, stats, extras = {}, {}, {}
     if san_ckpt:
         params, stats, extras = C.convert_san_semantic(C.load_torch_state_dict(san_ckpt), cfg)
     if depth_ckpt:
-        depth = C.convert_dav2(C.load_torch_state_dict(depth_ckpt), cfg.depth)
-        params = dict(params, depth=C.merge_lora(depth, cfg.depth.lora_alpha))
+        sd = C.load_torch_state_dict(depth_ckpt)
+        if cfg.depth_mode == "zoedepth":
+            depth = C.merge_lora(C.convert_zoedepth(sd, cfg.zoe), 1.0)
+        else:
+            depth = C.merge_lora(C.convert_dav2(sd, cfg.depth), cfg.depth.lora_alpha)
+        params = dict(params, depth=depth)
     return ({"params": params, "batch_stats": stats} if params else None), extras
 
 
@@ -159,10 +165,11 @@ def resolve_weights_dir(weights_dir: str, preset: str):
                                                san_vit_large_14.pth)
       depth_pretrain/depthanythingv2_pretrain_large.pth  (finetuned; or the
         published depthanythingv2/depth_anything_v2_metric_vkitti_vitl.pth)
+      depth_pretrain/zoedepth_pretrain.pth               (zoe presets)
       bpe_simple_vocab_16e6.txt.gz                       (CLIP tokenizer)
 
     A missing checkpoint raises FileNotFoundError naming each."""
-    large = "_l" in preset
+    large, zoe = "_l" in preset, "zoe" in preset
     found, missing = {}, []
 
     def pick(key, candidates, required=True):
@@ -176,8 +183,9 @@ def resolve_weights_dir(weights_dir: str, preset: str):
 
     pick("san", ["clipsan/SAN_ViT-L.pth", "clipsan/san_vit_large_14.pth"]
          if large else ["clipsan/SAN_ViT-B.pth", "clipsan/san_vit_b_16.pth"])
-    pick("depth", ["depth_pretrain/depthanythingv2_pretrain_large.pth",
-                   "depthanythingv2/depth_anything_v2_metric_vkitti_vitl.pth"])
+    pick("depth", ["depth_pretrain/zoedepth_pretrain.pth"] if zoe else
+         ["depth_pretrain/depthanythingv2_pretrain_large.pth",
+          "depthanythingv2/depth_anything_v2_metric_vkitti_vitl.pth"])
     pick("bpe", ["bpe_simple_vocab_16e6.txt.gz", "clipsan/bpe_simple_vocab_16e6.txt.gz"],
          required=False)
     if missing:
@@ -413,8 +421,9 @@ _DATA = ("test", "cache-depth")
 # (flags, argparse keywords, the subcommands that take the option); names
 # and defaults are the reference CLI's
 OPTIONS = (
-    (("--preset",), dict(default="veon_b", help="veon_b, veon_b_fast, veon_b_fast2, veon_l "
-                                                "or veon_tiny_test"), _MODEL),
+    (("--preset",), dict(default="veon_b", help="veon_b, veon_b_fast, veon_b_fast2, veon_l, "
+                                                "veon_b_zoe, veon_l_zoe or veon_tiny_test"),
+     _MODEL),
     (("--num-temporal",), dict(type=int, default=1), _FRAMES),
     (("--device",), dict(default="cuda", help="cuda, or cpu for the plain versions"), _MODEL),
     (("--bpe-path",), dict(default=None, help="CLIP bpe_simple_vocab_16e6.txt.gz for exact "
@@ -430,7 +439,9 @@ OPTIONS = (
     (("--cam-shards",), dict(type=int, default=1, help="not ported: must be 1"), ("serve",)),
     (("--load-from",), dict(default=None, help="reference SAN/VEON semantic .pth"),
      ("serve", "test")),
-    (("--depth-load-from",), dict(default=None, help="reference DA-V2 depth .pth"),
+    (("--depth-load-from",), dict(default=None, help="reference depth .pth of the preset's "
+                                                     "branch: DA-V2, or ZoeDepth-NK for a zoe "
+                                                     "preset"),
      ("serve", "test", "cache-depth")),
     (("--data-root",), dict(default="data/nuscenes"), _DATA + ("create-infos",)),
     (("--ann",), dict(default="data/nuscenes/bevdetv2-nuscenes_infos_train.pkl"), _DATA),

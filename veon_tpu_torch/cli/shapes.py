@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..configs.base import VeonConfig
-from ..data.transforms import dav2_size
+from ..data.transforms import depth_tower_size
 
 # cam->ego axis permutation for a camera looking along ego +x
 _CAM_TO_EGO_BASE = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]],
@@ -74,9 +74,10 @@ def example_batch(cfg: VeonConfig, B: int = 1, device="cuda"):
 
 
 def example_depth_imgs(cfg: VeonConfig, B: int = 1, device="cuda"):
-    """(B,F,N,Hd,Wd,3) DA-V2-normalized depth-tower input at the DA-V2
-    lower-bound size."""
-    dh, dw = dav2_size(*cfg.data.depth_input_size, target=cfg.data.dav2_target)
+    """(B,F,N,Hd,Wd,3) N(0, 1) depth-tower input at the depth branch's size
+    (`data/transforms.py` `depth_tower_size`): the DA-V2 lower-bound size,
+    or depth_input_size for the midas-normalized zoe branch."""
+    dh, dw = depth_tower_size(cfg.data)
     shape = (B, cfg.num_temporal, cfg.data.num_cams, dh, dw, 3)
     return _to(np.random.default_rng(3).standard_normal(shape).astype(np.float32), device)
 
@@ -116,9 +117,10 @@ def example_drive(cfg: VeonConfig, frames: int, device="cuda", seed: int = 0):
     rig's single-frame metas (sensor2egos, ego2globals, intrins, post_rots,
     post_trans, bda) and, in time order, one request per frame: imgs
     (1, 1, N, H, W, 3) N(0, 1), depth_imgs (1, 1, N, Hd, Wd, 3) N(0, 1) at
-    the DA-V2 size, lidarego2global (1, 4, 4) from `drive_poses`."""
+    the depth branch's size (as `example_depth_imgs`), lidarego2global
+    (1, 4, 4) from `drive_poses`."""
     N, (H, W) = cfg.data.num_cams, cfg.data.input_size
-    dh, dw = dav2_size(*cfg.data.depth_input_size, target=cfg.data.dav2_target)
+    dh, dw = depth_tower_size(cfg.data)
     _imgs, _depth, metas = example_batch(dataclasses.replace(cfg, num_temporal=1), device=device)
     rig = {k: metas[k] for k in ("sensor2egos", "ego2globals", "intrins", "post_rots",
                                  "post_trans", "bda")}

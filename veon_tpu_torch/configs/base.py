@@ -2,8 +2,8 @@
 
 A copy of the fields of `veon_tpu/configs/base.py` that the serving
 forwards (F=1 and temporal), the text tower and the stage-2 train step
-read, and the host data plane's `DataConfig` (the port imports nothing of
-`veon_tpu`). ZoeDepth fields come with the slice that ports that branch.
+read, the ZoeDepth-NK branch's `ZoeConfig`, and the host data plane's
+`DataConfig` (the port imports nothing of `veon_tpu`).
 """
 
 from __future__ import annotations
@@ -157,6 +157,38 @@ class DepthConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ZoeConfig:
+    """ZoeDepth-NK on MiDaS DPT-BEiT-L-384: the BEiT-L/16 trunk, the MiDaS
+    decoder and the kitti metric-bins head. `use_lora`/`lora_r` describe
+    the adapters of a depth-pretrain checkpoint; like `DepthConfig`, the
+    port folds them into the base weights when it loads one (scale 1 / r,
+    the adapters' alpha 1), so its tower has none."""
+
+    # BEiT-L/16-384 trunk
+    width: int = 1024
+    depth: int = 24
+    heads: int = 16
+    patch_size: int = 16
+    hooks: Tuple[int, int, int, int] = (5, 11, 17, 23)
+    pyramid_channels: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
+    features: int = 256
+    # metric bins head (kitti-only in the VEON adaptor)
+    n_bins: int = 64
+    min_depth: float = 1e-3
+    max_depth: float = 80.0
+    bin_embedding_dim: int = 128
+    n_attractors: Tuple[int, int, int, int] = (16, 8, 4, 1)
+    attractor_alpha: float = 1000.0
+    attractor_gamma: int = 2
+    attractor_kind: str = "mean"
+    attractor_type: str = "inv"
+    min_temp: float = 0.0212
+    max_temp: float = 50.0
+    use_lora: bool = True
+    lora_r: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Camera + input geometry and the host data plane's augmentation."""
 
@@ -170,7 +202,7 @@ class DataConfig:
     )
     num_cams: int = 6
     input_size: Tuple[int, int] = (512, 1408)
-    depth_norm_method: str = "depthanythingv2"
+    depth_norm_method: str = "depthanythingv2"  # or "midas" for the zoe branch
     depth_input_size: Tuple[int, int] = (256, 704)
     # DA-V2 lower-bound resize target (multiple of 14)
     dav2_target: int = 252
@@ -219,6 +251,8 @@ class VeonConfig:
     hsa: HSAConfig = HSAConfig()
     propagation: PropagationConfig = PropagationConfig()
     depth: DepthConfig = DepthConfig()
+    zoe: ZoeConfig = ZoeConfig()
+    depth_mode: str = "depthanythingv2"  # or "zoedepth"
     loss: LossConfig = LossConfig()
 
     lss_feat_ds: Tuple[int, int, int] = (2, 2, 2)  # (z, h, w)

@@ -1,5 +1,6 @@
-"""Model presets of the port: VEON-B and its fast serving tiers, VEON-L and
-the unit-test miniature (the same values as `veon_tpu/configs/presets.py`)."""
+"""Model presets of the port: VEON-B and its fast serving tiers, VEON-L,
+both on the ZoeDepth-NK depth branch too, and the unit-test miniature (the
+same values as `veon_tpu/configs/presets.py`)."""
 
 from __future__ import annotations
 
@@ -59,6 +60,22 @@ def veon_b_fast2(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonC
     """VEON-B fast serving tier 2: DA-V2 lower bound 196; as `veon_b_fast`."""
     cfg = veon_b(num_temporal=num_temporal, compute_dtype=compute_dtype)
     return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dav2_target=196))
+
+
+def veon_b_zoe(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonConfig:
+    """VEON-B with the ZoeDepth-NK (MiDaS BEiT-L-384) depth branch
+    (configs/veon/veon-temporal-base-512x1408-zoe-nodepthcache.py): its
+    depth input is midas-normalized at `depth_input_size`, not resized."""
+    cfg = veon_b(num_temporal=num_temporal, compute_dtype=compute_dtype)
+    return dataclasses.replace(cfg, depth_mode="zoedepth",
+                               data=dataclasses.replace(cfg.data, depth_norm_method="midas"))
+
+
+def veon_l_zoe(num_temporal: int = 1) -> VeonConfig:
+    """VEON-L with the ZoeDepth-NK depth branch (fp32 only, as `veon_l`)."""
+    cfg = veon_l(num_temporal=num_temporal)
+    return dataclasses.replace(cfg, depth_mode="zoedepth",
+                               data=dataclasses.replace(cfg.data, depth_norm_method="midas"))
 
 
 def veon_tiny_test(num_temporal: int = 1) -> VeonConfig:

@@ -147,8 +147,7 @@ class NuScenesOccDataset:
         dH, dW = cfg.depth_input_size
         use_cache = self.depth_cache_dir is not None
         if not use_cache:
-            fdh, fdw = T.dav2_size(dH, dW, target=cfg.dav2_target) \
-                if cfg.depth_norm_method == "depthanythingv2" else (dH, dW)
+            fdh, fdw = T.depth_tower_size(cfg)
         norm_depth = T.NORMALIZERS[cfg.depth_norm_method]
 
         img_dt = np.uint8 if self.raw_uint8 else np.float32

@@ -103,6 +103,15 @@ def dav2_size(h: int, w: int, target: int = 252) -> Tuple[int, int]:
     return constrain(scale * h), constrain(scale * w)
 
 
+def depth_tower_size(cfg) -> Tuple[int, int]:
+    """(h, w) of the depth tower's input for a `DataConfig`: the DA-V2
+    lower-bound size for the DA-V2 branch; `depth_input_size` as it is for
+    the midas-normalized zoe branch (midasNormalize does no resize)."""
+    if cfg.depth_norm_method == "depthanythingv2":
+        return dav2_size(*cfg.depth_input_size, target=cfg.dav2_target)
+    return tuple(cfg.depth_input_size)
+
+
 def quaternion_matrix(q: Sequence[float]) -> np.ndarray:
     """(w, x, y, z) unit quaternion -> 3x3 rotation, float64 (pyquaternion's
     layout, as the reference's `get_sensor_transforms` reads it)."""

@@ -47,6 +47,7 @@ from ..nn.hsa import HighresSideAdaptor
 from ..nn.san import SideAdapterNetwork
 from ..nn.text import merge_classes_max
 from ..nn.vit import CLIPRecHead, CLIPVisualExtractor
+from ..nn.zoedepth import ZoeDepthNK
 from ..ops.grid_sample import grid_sample_3d
 from ..ops.resize import resize_bilinear, resize_trilinear
 
@@ -62,7 +63,10 @@ class VeonModel(nn.Module):
         c = self.cfg = cfg
         dt = torch_dtype(c.compute_dtype)
         with torch.device(resolve_device(device)):
-            self.depth = DepthAnythingV2(c.depth, dtype=dt)
+            if c.depth_mode == "zoedepth":
+                self.depth = ZoeDepthNK(c.zoe, dtype=dt)
+            else:
+                self.depth = DepthAnythingV2(c.depth, dtype=dt)
             # layers consumed downstream: side-adapter and HSA fusion
             # sources and the rec-head entry layer
             save_layers = tuple(sorted(
@@ -86,8 +90,9 @@ class VeonModel(nn.Module):
         self.lift = LSSLift.from_config(c)
 
     def estimate_depth(self, depth_imgs):
-        """(B, F, N, Hd, Wd, 3) DA-V2-normalized -> (B, F, N, H/2, W/2) metric,
-        resized bilinear align_corners=True."""
+        """(B, F, N, Hd, Wd, 3) DA-V2- or midas-normalized (the depth
+        branch's) -> (B, F, N, H/2, W/2) metric, resized bilinear
+        align_corners=True."""
         B, F, N = depth_imgs.shape[:3]
         d = self.depth(depth_imgs.reshape((-1,) + depth_imgs.shape[3:]))
         h2, w2 = self.cfg.data.input_size[0] // 2, self.cfg.data.input_size[1] // 2

@@ -276,15 +276,18 @@ class FeedForward(nn.Module):
 
 
 _NORMAL_002 = {"class_embedding", "positional_embedding", "proj_kernel",
-               "pos_embed", "query_embed", "query_pos_embed", "text_projection"}
+               "pos_embed", "query_embed", "query_pos_embed", "text_projection",
+               "relative_position_bias_table"}
 
 
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random initialisation standing in for real weights, with the
     flax initialisers' scales: fan-in-scaled normal kernels, zero biases,
-    unit norm scales and LayerScales, N(0, 0.02) embeddings, token
-    embeddings N(0, 1/features) as flax's Embed."""
+    unit norm scales and LayerScales, N(0, 0.02) embeddings and BEiT
+    relative-position tables (timm's init; flax's is zeros, which would
+    leave the bias path idle), token embeddings N(0, 1/features) as
+    flax's Embed."""
     for m in module.modules():
         w = getattr(m, "weight", None)
         if isinstance(m, Embed):
