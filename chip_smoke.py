@@ -104,7 +104,25 @@ Phases; any failed check raises, so the exit code is non-zero:
  24. veon_b_zoe bf16 against fp32 on the converted weights (the battery);
  25. zoe evaluation, a main path (run with phase 19's shard): `test
      --preset veon_b_zoe` on 4 frames (#3 once per frame), `cache-depth`
-     on 2 frames.
+     on 2 frames;
+ 26. the training recipe at tiny size, card vs CPU: two stage-1 steps of
+     the tiny DA-V2 (LoRA r=2) and the tiny zoe tower, `train_epochs` over
+     one epoch of a 3-frame fixture, and a save/resume step against the
+     straight run on the card;
+ 27. stage 2 through the CLI, a main path: `train --preset veon_b` fp32 on
+     4 frames of phase 19's shard with its LiDAR sweeps, `--epochs 1`
+     then `--epochs 2 --auto-resume` (epoch 2 alone), #3 once per step;
+     `--accum-steps 2` (params move every second step); `publish --ema`,
+     `test --ckpt` on it (#3 once per frame), `test --all-ckpts
+     --sweep-from 1` over both checkpoints, `--ema` on the published one
+     refused;
+ 28. stage 1 through the CLI, a main path: `pretrain-depth --preset
+     veon_b` on 4 frames and `--preset veon_b_zoe` on 2, fp32, at the full
+     input resolution: the base trunk bit-unchanged, adapters and head
+     moved;
+ 29. the overfit drill `stage2_overfit` on the card and on the CPU, from
+     CPU-seeded and card-seeded weights: the JAX test's loss margins
+     everywhere, the mIoU margin's verdict the CPU's.
 Phases 11-12 serve through the CLI's handler, which computes in the
 preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
@@ -112,6 +130,7 @@ The line before the last is the kernel table as JSON; the last line is
 Without a card it exits non-zero and prints no result.
 """
 
+import copy
 import dataclasses
 import gc
 import json
@@ -2376,6 +2395,553 @@ def zoe_eval_phase(root, frames=4):
                 cache_files=n, cache_seconds=cs)
 
 
+# ---------------------------------------------------------------------------
+# Phases 26-29: the two-stage training recipe
+# ---------------------------------------------------------------------------
+
+
+def _moves_agree(want, got, start, names, what):
+    """The move from `start` of the `names` entries as one vector, card
+    against CPU: cosine > 0.999 and norm within 1%. Adam's first steps move
+    each entry by about lr * sign(g), so an entry whose gradient is at
+    rounding level may go either way: no per-entry bound."""
+    w, g = (torch.cat([(src[n].detach().cpu() - start[n]).reshape(-1) for n in sorted(names)])
+            .double() for src in (want, got))
+    cos = float(w @ g / (w.norm() * g.norm()))
+    ratio = float(g.norm() / w.norm())
+    if not (w.abs().max() > 0 and cos > 0.999 and abs(ratio - 1) < 1e-2):
+        raise AssertionError(f"{what}: moves card vs CPU cosine {cos}, norm ratio {ratio}")
+    return cos, ratio
+
+
+def _stage1_tiny(mode):
+    """(tower on the CPU, trainable predicate, frames, GT): the JAX drill's
+    tiny DA-V2 (r=2) or tiny zoe tower, seeded, and GT near its own first
+    prediction (x U(0.7, 1.4), 30% missing) so SILog stays below its clip."""
+    from veon_tpu_torch.configs.base import DepthConfig, ZoeConfig
+    from veon_tpu_torch.nn.dpt import DepthAnythingV2
+    from veon_tpu_torch.nn.layers import init_random_
+    from veon_tpu_torch.nn.zoedepth import ZoeDepthNK
+    from veon_tpu_torch.ops.resize import resize_bilinear
+    from veon_tpu_torch.train.depth_pretrain import depth_trainable, zoe_trainable
+    from veon_tpu_torch.utils.overfit import TINY_ZOE
+
+    if mode == "zoe":
+        tower, pred, hw, ghw = ZoeDepthNK(ZoeConfig(**TINY_ZOE), lora=True), zoe_trainable, \
+            (64, 96), (64, 96)
+    else:
+        tower = DepthAnythingV2(DepthConfig(encoder="vits", features=8, out_channels=(4, 8, 8, 8),
+                                            lora_r=2), lora=True)
+        pred, hw, ghw = depth_trainable, (28, 42), (32, 48)
+    init_random_(tower, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(11)
+    imgs = torch.from_numpy(rng.standard_normal((1, 1, 2) + hw + (3,)).astype(np.float32))
+    with torch.no_grad():
+        p = tower(imgs[:, 0].reshape((-1,) + imgs.shape[3:]))
+        p = resize_bilinear(p[..., None], (ghw[0] // 2, ghw[1] // 2), align_corners=True)[..., 0]
+    gt = np.repeat(np.repeat(p.numpy()[None], 2, -2), 2, -1)
+    gt = gt * rng.uniform(0.7, 1.4, gt.shape)
+    gt[rng.random(gt.shape) < 0.3] = 0.0
+    return tower, pred, imgs, torch.from_numpy(gt.astype(np.float32))
+
+
+def train_stages_parity_phase(root):
+    """Phase 26, the training recipe at tiny size, card vs CPU (plain
+    versions), fp32, same weights: (a) two stage-1 steps of the JAX
+    drill's tiny DA-V2 (LoRA r=2) and tiny zoe: losses within 1e-4, the
+    first gradient (Adam's moments) within 1e-3 of its largest entry, the
+    trainable params' move as one vector at cosine > 0.999 and norm within
+    1%, the frozen trunk bit-unchanged on both; (b) `train_epochs` over one
+    epoch of the tiny 3-frame fixture: three log lines each, the losses
+    of every step within 1e-4, params and EMA within 1e-5, running stats
+    within 1e-4, relative where above 1; (c) on the card, two
+    steps, a checkpoint, a model of another seed loaded from it and one more
+    step against three straight steps: every param, running stat, EMA entry
+    and Adam moment and the last losses within 1e-5 (relative above 1),
+    and bit-equal where two straight runs on the card are (the backward's
+    atomic sums may make them differ)."""
+    from veon_tpu_torch.ckpt import io as tio
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.configs.base import GridConfig, LossConfig
+    from veon_tpu_torch.data.loader import DataLoader
+    from veon_tpu_torch.data.nuscenes import NuScenesOccDataset, load_infos
+    from veon_tpu_torch.entry import build_model, train_batch
+    from veon_tpu_torch.nn import text as text_mod
+    from veon_tpu_torch.train import step as tstep
+    from veon_tpu_torch.train.depth_pretrain import make_depth_pretrain_step
+    from veon_tpu_torch.train.loop import train_epochs
+
+    out = {}
+    for mode in ("dav2", "zoe"):
+        cpu_tower, pred, imgs, gt = _stage1_tiny(mode)
+        start = {n: p.detach().clone() for n, p in cpu_tower.named_parameters()}
+        towers = {"cpu": cpu_tower, "cuda": copy.deepcopy(cpu_tower).cuda()}
+        runs = {}
+        for dev, tower in towers.items():
+            tx = tstep.AdamW(lr=2e-4, warmup_iters=2, warmup_ratio=0.5)
+            state = tstep.create_train_state(tower, tx, init_updates=0, predicate=pred)
+            step = make_depth_pretrain_step(tower, tx, GridConfig(), LossConfig())
+            batch = {"depth_imgs": imgs.to(dev), "gt_depth": gt.to(dev)}
+            losses, mu1 = [], None
+            for i in range(2):
+                state, lo = step(state, batch)
+                losses.append({k: float(v) for k, v in lo.items()})
+                if i == 0:
+                    mu1 = {n: v.detach().cpu().clone() for n, v in state.opt_state.mu.items()}
+            runs[dev] = (tower, state, losses, mu1)
+        (tc, sc, lc, mc), (tg, sg, lg, mg) = runs["cpu"], runs["cuda"]
+        for a, b in zip(lc, lg):
+            for k in a:
+                if not math.isclose(a[k], b[k], rel_tol=1e-4, abs_tol=1e-5):
+                    raise AssertionError(f"stage-1 {mode} {k}: card {b[k]} vs CPU {a[k]}")
+        scale = max(v.abs().max().item() for v in mc.values())
+        grad = max((mg[n] - v).abs().max().item() for n, v in mc.items()) / scale
+        if grad > 1e-3:
+            raise AssertionError(f"stage-1 {mode}: first gradient off by {grad:.3g} of the largest")
+        trained = {n for n, p in tc.named_parameters() if p.requires_grad}
+        cos, ratio = _moves_agree(dict(tc.named_parameters()), dict(tg.named_parameters()),
+                                  start, trained, f"stage-1 {mode}")
+        for t in (tc, tg):
+            for n, p in t.named_parameters():
+                if n not in trained and not torch.equal(p.detach().cpu(), start[n]):
+                    raise AssertionError(f"stage-1 {mode}: frozen {n} moved")
+        out[f"stage1_{mode}"] = dict(losses_cpu=lc, losses_card=lg, grad_rel_err=grad,
+                                     move_cos=cos, move_norm_ratio=ratio,
+                                     trainable=len(trained))
+        log(f"stage-1 tiny {mode} card vs CPU: losses {lg[-1]} (CPU {lc[-1]}), first gradient "
+            f"{grad:.3g} of the largest, move cosine {cos:.7f} norm ratio {ratio:.6f}, "
+            f"{len(trained)} trainable tensors, frozen trunk bit-unchanged")
+
+    from veon_tpu_torch.utils.loader_bench import make_frames
+
+    pkl = make_frames(os.path.join(root, "tiny_train"), 3, hw=(90, 160), grid_shape=(20, 20, 4))
+    cfg = presets.veon_tiny_test()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, src_size=(90, 160)))
+    _, refl = text_mod.build_vocabulary(cfg.vocabulary)
+    membership = text_mod.merge_matrix(refl)
+    ovw = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (len(refl) + 1, cfg.san.clip_embed_dim)).astype(np.float32))
+    # both models are built, the card's given the CPU's weights, before either trains
+    models = {dev: build_model(cfg, torch.device(dev), 3, None) for dev in ("cpu", "cuda")}
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    runs = {}
+    for dev, model in models.items():
+        tx = tstep.AdamW()
+        ds = NuScenesOccDataset(infos=load_infos(pkl), data_cfg=cfg.data, grid=cfg.grid,
+                                num_temporal=1, is_train=True,
+                                data_root=os.path.join(root, "tiny_train"))
+        lines, losses = [], []
+        step = tstep.make_train_step(model, tx, cfg, membership)
+
+        def recorded(state, batch, step=step, losses=losses):
+            state, lo = step(state, batch)
+            losses.append({k: float(v) for k, v in lo.items()})
+            return state, lo
+
+        state = train_epochs(tstep.create_train_state(model, tx), recorded,
+                             DataLoader(ds, shuffle=True, num_workers=1), ovw.to(dev),
+                             max_epochs=1, work_dir=os.path.join(root, f"tiny_work_{dev}"),
+                             log_interval=1, log_fn=lines.append)
+        runs[dev] = (state, lines, losses)
+    (sc, lc, lo_c), (sg, lg, lo_g) = runs["cpu"], runs["cuda"]
+    if len(_loss_lines(lc)) != 3 or len(_loss_lines(lg)) != 3 or len(lo_c) != 3:
+        raise AssertionError(f"train_epochs lines: {lc} / {lg}")
+    loss_diff = {k: max(abs(a[k] - b[k]) / max(abs(a[k]), 1.0) for a, b in zip(lo_c, lo_g))
+                 for k in lo_c[0]}
+    bad = [k for k, d in loss_diff.items() if d > 1e-4]
+    diffs = {}
+    for what, a, b, tol in (
+            ("params", dict(sc.model.named_parameters()), dict(sg.model.named_parameters()), 1e-5),
+            ("ema", {**sc.ema_params}, {**sg.ema_params}, 1e-5),
+            ("batch_stats", tstep.batch_stats(sc.model), tstep.batch_stats(sg.model), 1e-4)):
+        diffs[what] = max(((b[n].detach().cpu() - v.detach()).abs()
+                           / v.detach().abs().clamp_min(1.0)).max().item() for n, v in a.items())
+        if diffs[what] > tol:
+            bad.append(what)
+    out["train_epochs"] = dict(lines_card=lg, lines_cpu=lc, losses_cpu=lo_c, losses_card=lo_g,
+                               loss_diff=loss_diff, **diffs)
+    log(f"train_epochs tiny, one epoch of 3 frames, card vs CPU (relative above 1): max loss "
+        f"diffs {loss_diff}, per step {[[round(b[k] - a[k], 7) for k in a] for a, b in zip(lo_c, lo_g)]}, "
+        f"params {diffs['params']:.3g}, EMA {diffs['ema']:.3g}, running stats "
+        f"{diffs['batch_stats']:.3g}")
+    if bad:
+        raise AssertionError(f"train_epochs card vs CPU outside tolerance: {bad}")
+
+    batch = train_batch(cfg, device="cuda")
+
+    def fresh(seed):
+        model = build_model(cfg, torch.device("cuda"), seed, None)
+        tx = tstep.AdamW()
+        return tstep.create_train_state(model, tx), tstep.make_train_step(model, tx, cfg,
+                                                                            membership)
+
+    runs = []
+    for _ in range(2):  # two straight runs: the card's own run-to-run spread
+        straight, step = fresh(3)
+        for _ in range(3):
+            straight, want = step(straight, batch)
+        runs.append((straight, want))
+    part, step = fresh(3)
+    for _ in range(2):
+        part, _ = step(part, batch)
+    path = tio.save_checkpoint(os.path.join(root, "tiny_resume"), part.step, part, next_epoch=1)
+    resumed, step = fresh(9)
+    resumed = tio.load_checkpoint(path, target=resumed)
+    resumed, got = step(resumed, batch)
+
+    def compare(x, lx, y, ly):
+        """(max difference, relative where above 1; bit-equal) of two runs."""
+        pairs = [(x.model.state_dict(), y.model.state_dict()), (x.ema_params, y.ema_params),
+                 (x.ema_batch_stats, y.ema_batch_stats), (x.opt_state.mu, y.opt_state.mu),
+                 (x.opt_state.nu, y.opt_state.nu), (lx, ly)]
+        worst = max(((b[n].float() - a[n].float()).abs() / a[n].float().abs().clamp_min(1.0))
+                    .max().item() for a, b in pairs for n in a)
+        return worst, all(torch.equal(a[n], b[n]) for a, b in pairs for n in a)
+
+    spread, spread_exact = compare(*runs[0], *runs[1])
+    worst, exact = compare(*runs[0], resumed, got)
+    straight = runs[0][0]
+    if worst > 1e-5 or (spread_exact and not exact) or straight.step != resumed.step or \
+            not torch.equal(straight.ema_updates, resumed.ema_updates):
+        raise AssertionError(f"resume on the card: off by {worst} from the straight run (two "
+                             f"straight runs: {spread}, bit-equal {spread_exact})")
+    out["resume"] = dict(max_diff=worst, bit_equal=exact, run_to_run=spread,
+                         run_to_run_bit_equal=spread_exact)
+    log(f"save/resume on the card (tiny, 2 steps + checkpoint + 1 step vs 3 straight): max "
+        f"diff {worst:.3g} (relative above 1), bit-equal {exact}; two straight runs differ "
+        f"by {spread:.3g}, bit-equal {spread_exact}")
+    return out
+
+
+def _loss_lines(lines):
+    """The loss dicts of train_epochs' log lines."""
+    import re
+
+    out = []
+    for ln in lines:
+        m = re.match(r"epoch \d+ iter \d+/\d+ \([\d.]+s/iter\) (.*)", ln)
+        if m:
+            out.append({k: float(v) for k, v in (kv.split(": ") for kv in m.group(1).split(", "))})
+    return out
+
+
+class step_probe:
+    """While active, wraps the step factory `name` of `cli/main.py`: each
+    step of the CLI's run is synchronized and timed, its launches read
+    around it (the counters are not reset), its losses kept, and with
+    `watch(state) -> tensor` whether that tensor moved."""
+
+    def __init__(self, name, watch=None):
+        from veon_tpu_torch.cli import main as cli_mod
+
+        self.mod, self.name, self.watch = cli_mod, name, watch
+        self.ms, self.launches, self.losses, self.moved = [], [], [], []
+
+    def __enter__(self):
+        self.orig = getattr(self.mod, self.name)
+        probe, fns = self, kernel_fns()
+
+        def factory(*a, **kw):
+            step = probe.orig(*a, **kw)
+
+            def timed(state, batch):
+                before = probe.watch(state).clone() if probe.watch else None
+                torch.cuda.synchronize()
+                counts = {k: fn.launches for k, fn in fns.items()}
+                t = time.perf_counter()
+                state, losses = step(state, batch)
+                torch.cuda.synchronize()
+                probe.ms.append((time.perf_counter() - t) * 1e3)
+                probe.launches.append({k: fn.launches - counts[k] for k, fn in fns.items()})
+                probe.losses.append({k: float(v) for k, v in losses.items()})
+                if before is not None:
+                    probe.moved.append(not torch.equal(before, probe.watch(state)))
+                return state, losses
+
+            return timed
+
+        setattr(self.mod, self.name, factory)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+    def warm_ms(self):
+        """The median of the steps after the first (cuDNN's plans, the
+        allocator's first growth)."""
+        return statistics.median(self.ms[1:] if len(self.ms) > 1 else self.ms)
+
+
+class io_probe:
+    """While active, times every checkpoint save (`train/loop.py`) and
+    load (`cli/main.py`), with the saved file's bytes."""
+
+    def __init__(self):
+        from veon_tpu_torch.cli import main as cli_mod
+        from veon_tpu_torch.train import loop
+
+        self.targets = ((loop, "save_checkpoint", "save"), (cli_mod, "save_checkpoint", "save"),
+                        (cli_mod, "load_checkpoint", "load"))
+        self.times = {"save": [], "load": []}
+        self.bytes = []
+
+    def __enter__(self):
+        self.orig = []
+        for mod, name, kind in self.targets:
+            fn = getattr(mod, name)
+            self.orig.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn, kind))
+        return self
+
+    def _timed(self, fn, kind):
+        from veon_tpu_torch.ckpt.io import STATE_FILE
+
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.times[kind].append(time.perf_counter() - t)
+            if kind == "save":
+                self.bytes.append(os.path.getsize(os.path.join(res, STATE_FILE)))
+            return res
+
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+
+def _trainable_probe(state):
+    """The first trainable param of a train state (it moves on every update)."""
+    return next(p for p in state.model.parameters() if p.requires_grad).detach()
+
+
+def train_shard(root, n):
+    """An infos pkl of the first n frames of the shard with a 34,720-point
+    LiDAR sweep each that the rig sees (its cameras look along the ego z
+    axis, so phase 19's ground-level sweep lands in few pixels): points
+    U(-30, 30) m across, 1.7-38 m above the lidar, 1.8 m above the ego."""
+    import pickle
+
+    with open(os.path.join(root, "infos.pkl"), "rb") as f:
+        data = pickle.load(f)
+    rng = np.random.default_rng(8)
+    infos = data["infos"][:n]
+    for info in infos:
+        pts = np.concatenate([rng.uniform(-30, 30, (34720, 2)), rng.uniform(1.7, 38, (34720, 1)),
+                              rng.uniform(0, 1, (34720, 2))], 1).astype(np.float32)
+        info["lidar_path"] = os.path.join(root, f"lidar_train_{info['token']}.bin")
+        pts.tofile(info["lidar_path"])
+        info["lidar2ego_rotation"], info["lidar2ego_translation"] = [1.0, 0, 0, 0], [0, 0, 1.8]
+    path = os.path.join(root, f"infos_train_{n}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"infos": infos, "metadata": data["metadata"]}, f)
+    return path
+
+
+def train_cli_phase(root, frames=4):
+    """Phase 27, stage 2 through the CLI, a main path: `train --preset
+    veon_b` at full width in fp32 (the preset's dtype), seeded weights, on
+    the first `frames` frames of the shard with LiDAR sweeps (`train_shard`): `--epochs
+    1`, then `--epochs 2 --auto-resume`, which must start at NEXT_EPOCH 1
+    and run epoch 2 alone; kernel #3 exactly once per step, read around
+    each step. Reported: ms/step (median of the warm steps), peak memory
+    above the phase's start, checkpoint bytes, save and load seconds. Then
+    `--accum-steps 2` over one epoch (the params move on every second step
+    only), `publish --ema`, `test --ckpt <published>` (#3 once per frame),
+    `test --all-ckpts --sweep-from 1` over both checkpoints (#3 once per
+    frame and checkpoint), and `--ema` on the published one refused."""
+    pkl = train_shard(root, frames)
+    work = tempfile.mkdtemp(prefix="veon_train", dir=root)
+    base = ["--preset", "veon_b", "--data-root", root, "--ann", pkl, "--workers", "2"]
+    res = {}
+    start = phase_base()
+    torch.cuda.reset_peak_memory_stats()
+    with step_probe("make_train_step") as probe, io_probe() as io:
+        first, out1, s1, l1 = run_cli(["train", *base, "--epochs", "1", "--work-dir", work])
+        n1 = len(probe.ms)
+        second, out2, s2, l2 = run_cli(["train", *base, "--epochs", "2", "--auto-resume",
+                                        "--work-dir", work])
+    peak = torch.cuda.max_memory_allocated() - start
+    if first != {"start_epoch": 0, "step": frames} or \
+            second != {"start_epoch": 1, "step": 2 * frames} or n1 != frames or \
+            len(probe.ms) != 2 * frames or f"(epoch 1)" not in out2:
+        raise AssertionError(f"train / --auto-resume: {first}, {second}, steps {len(probe.ms)}")
+    want = {k: 1 if k == "bev_pool_sorted2" else 0 for k in probe.launches[0]}
+    for i, got in enumerate(probe.launches):
+        expect_launches(got, want, f"train step {i + 1}")
+    expect_launches(l1, {k: frames * v for k, v in want.items()}, "train --epochs 1")
+    expect_launches(l2, {k: frames * v for k, v in want.items()}, "train --auto-resume")
+    if not all(math.isfinite(v) for d in probe.losses for v in d.values()):
+        raise AssertionError(f"train losses {probe.losses}")
+    res["stage2"] = dict(step_ms=probe.ms, warm_ms=probe.warm_ms(), peak_bytes=peak,
+                         losses=probe.losses, ckpt_bytes=io.bytes, save_s=io.times["save"],
+                         load_s=io.times["load"], cli_s=[s1, s2], launches=probe.launches)
+    log(f"train --preset veon_b fp32, {frames} frames x 2 epochs (the second by --auto-resume "
+        f"from NEXT_EPOCH 1): step ms {[round(t, 3) for t in probe.ms]}, warm median "
+        f"{probe.warm_ms():.3f} ms, peak memory above the phase's start {peak / 2**30:.3f} GiB, "
+        f"checkpoint {[round(b / 2**30, 3) for b in io.bytes]} GiB, save s "
+        f"{[round(t, 3) for t in io.times['save']]}, load s "
+        f"{[round(t, 3) for t in io.times['load']]}, CLI s {[round(s1, 1), round(s2, 1)]}; "
+        f"#3 once per step; last losses {probe.losses[-1]}")
+    accum_dir = tempfile.mkdtemp(prefix="veon_accum", dir=root)
+    with step_probe("make_train_step", watch=_trainable_probe) as acc:
+        run_cli(["train", *base, "--epochs", "1", "--accum-steps", "2", "--work-dir", accum_dir])
+    if acc.moved != [i % 2 == 1 for i in range(frames)]:
+        raise AssertionError(f"--accum-steps 2: params moved on steps {acc.moved}")
+    shutil.rmtree(accum_dir, ignore_errors=True)
+    res["accum2"] = dict(moved=acc.moved, step_ms=acc.ms)
+    log(f"train --accum-steps 2: params moved {acc.moved}, step ms "
+        f"{[round(t, 3) for t in acc.ms]}")
+    t = time.perf_counter()
+    pub, _o, _s, _l = run_cli(["publish", "--ckpt", os.path.join(work, f"step_{2 * frames}"),
+                               "--out-prefix", os.path.join(root, "veon_b_pub"), "--ema"])
+    pub_s = time.perf_counter() - t
+    test_pkl = shard_paths(root, frames, "train_test")
+    tbase = ["--preset", "veon_b", "--data-root", root, "--ann", test_pkl, "--workers", "2"]
+    r, _o, ts, lt = run_cli(["test", *tbase, "--ckpt", pub])
+    expect_launches(lt, {k: frames * v for k, v in want.items()}, "test --ckpt")
+    sweep, _o, ss, ls = run_cli(["test", *tbase, "--all-ckpts", "--work-dir", work,
+                                 "--sweep-from", "1"])
+    expect_launches(ls, {k: 2 * frames * v for k, v in want.items()}, "test --all-ckpts")
+    if list(sweep["sweep"]) != [frames, 2 * frames] or not np.isfinite(r["mIoU"]):
+        raise AssertionError(f"test on checkpoints: {r['mIoU']}, sweep {list(sweep['sweep'])}")
+    try:
+        run_cli(["test", *tbase, "--ckpt", pub, "--ema"])
+    except SystemExit as e:
+        if "published" not in str(e):
+            raise
+    else:
+        raise AssertionError("test --ema on a published checkpoint was not refused")
+    res["checkpoints"] = dict(publish_s=pub_s, published=os.path.basename(pub),
+                              test_miou=r["mIoU"], test_s=ts,
+                              sweep={k: v["mIoU"] for k, v in sweep["sweep"].items()},
+                              sweep_s=ss, launches=dict(test=lt, sweep=ls))
+    log(f"publish --ema {os.path.basename(pub)} in {pub_s:.3f} s; test --ckpt (published) mIoU "
+        f"{r['mIoU']:.4f} in {ts:.1f} s; --all-ckpts --sweep-from 1 "
+        f"{ {k: round(v['mIoU'], 4) for k, v in sweep['sweep'].items()} } in {ss:.1f} s; --ema "
+        "on the published checkpoint refused")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(pub, ignore_errors=True)
+    res["launches_sorted2"] = (sum(d["bev_pool_sorted2"] for d in probe.launches)
+                               + sum(acc.launches[i]["bev_pool_sorted2"] for i in range(frames))
+                               + lt["bev_pool_sorted2"] + ls["bev_pool_sorted2"])
+    return res
+
+
+def pretrain_cli_phase(root, preset, frames):
+    """Phase 28, stage 1 through the CLI, a main path: `pretrain-depth
+    --preset P` (fp32, seeded tower with LoRA) on the first `frames`
+    frames of the shard with LiDAR sweeps (`train_shard`) at the full input
+    resolution, one epoch: ms/step,
+    peak memory above the phase's start, the loss of every step, the
+    checkpoint's save; the base trunk bit-unchanged, the adapters and the
+    head (zoe: decoder and bins head) moved; no kernel launched (the depth
+    tower has none)."""
+    from veon_tpu_torch.cli import main as cli_mod
+
+    pkl = train_shard(root, frames)
+    work = tempfile.mkdtemp(prefix="veon_pretrain", dir=root)
+    seen = {}
+    orig = cli_mod.depth_tower
+
+    def capture(cfg, device="cuda", seed=0):
+        tower, trainable, convert = orig(cfg, device, seed)
+        seen["tower"], seen["input"] = tower, cfg.data.depth_input_size
+        seen["start"] = {n: p.detach().cpu().clone() for n, p in tower.named_parameters()}
+        return tower, trainable, convert
+
+    start = phase_base()
+    torch.cuda.reset_peak_memory_stats()
+    cli_mod.depth_tower = capture
+    try:
+        with step_probe("make_depth_pretrain_step") as probe, io_probe() as io:
+            res, _out, s, launches = run_cli(["pretrain-depth", "--preset", preset,
+                                              "--data-root", root, "--ann", pkl, "--workers", "2",
+                                              "--epochs", "1", "--work-dir", work])
+    finally:
+        cli_mod.depth_tower = orig
+    peak = torch.cuda.max_memory_allocated() - start
+    tower = seen.pop("tower")
+    moved, frozen_moved = [], []
+    for n, p in tower.named_parameters():
+        if not torch.equal(p.detach().cpu(), seen["start"][n]):
+            (moved if p.requires_grad else frozen_moved).append(n)
+    trainable = [n for n, p in tower.named_parameters() if p.requires_grad]
+    lora = [n for n in moved if "lora_" in n]
+    if frozen_moved or len(probe.ms) != frames or not lora or len(moved) < len(trainable) // 2:
+        raise AssertionError(f"pretrain-depth {preset}: frozen moved {frozen_moved[:4]}, "
+                             f"{len(moved)} of {len(trainable)} trainable moved, "
+                             f"steps {len(probe.ms)}")
+    expect_launches(launches, {k: 0 for k in launches}, f"pretrain-depth {preset}")
+    if res["checkpoint"] != os.path.join(work, f"step_{frames}"):
+        raise AssertionError(f"pretrain-depth checkpoint {res['checkpoint']}")
+    if not all(math.isfinite(v) for d in probe.losses for v in d.values()):
+        raise AssertionError(f"pretrain-depth losses {probe.losses}")
+    del tower
+    shutil.rmtree(work, ignore_errors=True)
+    out = dict(step_ms=probe.ms, warm_ms=probe.warm_ms(), peak_bytes=peak, losses=probe.losses,
+               depth_input=list(seen["input"]), trainable=len(trainable), moved=len(moved),
+               lora_moved=len(lora), save_s=io.times["save"], ckpt_bytes=io.bytes, cli_s=s)
+    log(f"pretrain-depth --preset {preset} fp32, {frames} frames at the full input "
+        f"{tuple(seen['input'])}: step ms {[round(t, 3) for t in probe.ms]}, warm median "
+        f"{probe.warm_ms():.3f} ms, peak memory above the phase's start {peak / 2**30:.3f} GiB, "
+        f"losses {[{k: round(v, 5) for k, v in d.items()} for d in probe.losses]}, "
+        f"{len(moved)} of {len(trainable)} trainable tensors moved ({len(lora)} adapters), "
+        f"base trunk bit-unchanged, checkpoint {[round(b / 2**30, 3) for b in io.bytes]} GiB "
+        f"saved in {[round(t, 3) for t in io.times['save']]} s, CLI {s:.1f} s")
+    return out
+
+
+def overfit_phase():
+    """Phase 29, the overfit drill on the card: `stage2_overfit` at its
+    default size (tiny preset, 40 steps, lr 1e-3, seed 0) on the card and
+    on the CPU, from weights seeded by the CPU's generator (those of
+    `tests/test_torch_overfit.py`) and from weights seeded by the card's
+    (other weights for the same seed). Every run holds the JAX test's loss
+    margins (total loss down >= 28%, the occupancy term down), and the
+    card's first loss is the CPU's within 1e-4 on the same weights. The
+    JAX test's mIoU margin (up > 0.10) belongs to the weights, not the
+    device: the CPU misses it at 5 of seeds 0-11 (`python -m
+    veon_tpu_torch.utils.overfit --stage 2 --steps 40 --seed 0 ... 11
+    --device cpu`), the card-seeded seed-0 weights among them. So the card
+    must reach the CPU's verdict on the same weights, and both must pass it
+    on the CPU-seeded weights, as the CPU test does."""
+    import contextlib
+    import io
+
+    from veon_tpu_torch.utils.overfit import stage2_overfit
+
+    out = {}
+    for init in ("cpu", "cuda"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):  # the metric's per-class table
+                r = stage2_overfit(device=dev, log_every=10, init_device=init)
+            s = time.perf_counter() - t
+            if not (r["loss1"] < 0.72 * r["loss0"] and
+                    r["final_losses"]["loss_binocc"] < r["first_losses"]["loss_binocc"]):
+                raise AssertionError(f"stage2_overfit on {dev} from {init} weights: "
+                                     f"{r['curve']}")
+            runs[dev] = dict(curve=r["curve"], miou0=r["miou0"], miou1=r["miou1"],
+                             miou_margin=r["miou1"] > r["miou0"] + 0.10, seconds=s)
+            log(f"stage2_overfit on {dev} from {init}-seeded weights: loss {r['loss0']:.4f} -> "
+                f"{r['loss1']:.4f} ({100 * (1 - r['loss1'] / r['loss0']):.1f}% down), mIoU "
+                f"{r['miou0']:.3f} -> {r['miou1']:.3f}, {s:.1f} s")
+        card, cpu = runs["cuda"], runs["cpu"]
+        if abs(card["curve"][0][1] - cpu["curve"][0][1]) > 1e-4 * abs(cpu["curve"][0][1]):
+            raise AssertionError(f"first loss from {init} weights: card {card['curve'][0]}, "
+                                 f"cpu {cpu['curve'][0]}")
+        if card["miou_margin"] != cpu["miou_margin"] or (init == "cpu" and not cpu["miou_margin"]):
+            raise AssertionError(f"mIoU from {init} weights: card {card['miou0']} -> "
+                                 f"{card['miou1']}, cpu {cpu['miou0']} -> {cpu['miou1']}")
+        out[init] = runs
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2453,13 +3019,19 @@ def main():
         eval_tiny = eval_tiny_parity_phase(shard)
         eval_loop = eval_loop_phase(shard)
         zoe_eval = zoe_eval_phase(shard)
+        stages = train_stages_parity_phase(shard)
+        train_cli = train_cli_phase(shard)
+        pretrain = {"veon_b": pretrain_cli_phase(shard, "veon_b", 4),
+                    "veon_b_zoe": pretrain_cli_phase(shard, "veon_b_zoe", 2)}
     finally:
         shutil.rmtree(shard, ignore_errors=True)
+    overfit = overfit_phase()
 
     # launches on the main paths: the F=1 frames, the requests served from
     # converted weights and the new presets' frames, the zoe frames, calls
     # and served requests (#1); the train steps (#2, #3), the weights
-    # drills' forwards and the eval loops' frames, zoe's included (#3)
+    # drills' forwards and the eval loops' frames, zoe's included, the CLI
+    # train steps and the frames of `test` on their checkpoints (#3)
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
                                 + sum(weights["launches_per_request"])
                                 + new_presets["launches"]["bev_pool_pooled"]
@@ -2473,7 +3045,8 @@ def main():
                                  + weights["drill_launches"]["bev_pool_sorted2"]
                                  + eval_loop["launches_sorted2"]
                                  + zoe_weights["drill_launches"]["bev_pool_sorted2"]
-                                 + zoe_eval["launches"]["bev_pool_sorted2"]),
+                                 + zoe_eval["launches"]["bev_pool_sorted2"]
+                                 + train_cli["launches_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
                          + temporal["launches"]["ln_dense"])}
@@ -2496,6 +3069,8 @@ def main():
                    "eval_loop": eval_loop, "zoe_tiny_parity": zoe_tiny, "zoe_f1": zoe_f1,
                    "zoe_t2": zoe_t2, "zoe_weights": zoe_weights,
                    "zoe_precision": zoe_precision, "zoe_eval": zoe_eval,
+                   "train_stages_parity": stages, "train_cli": train_cli,
+                   "pretrain_cli": pretrain, "overfit": overfit,
                    "builds": {k: v["seconds"] for k, v in builds.items()},
                    "script_s": time.perf_counter() - script_t0},
                   f, indent=1)

@@ -19,8 +19,8 @@ config it built, which is what it would compute again.
   (`test_torch_slice.py`), idempotent.
 - `benchmark --eval` at the tiny preset: every leg positive, the last line
   one JSON record.
-- The refusals: orbax checkpoint options, the live-model and artifact
-  benchmarks.
+- The refusals that remain: camera-sharded, multi-process and temporal
+  training and remat policies, the live-model and artifact benchmarks.
 """
 
 import dataclasses
@@ -204,11 +204,12 @@ def test_benchmark_eval_tiny_all_legs(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["test", "--ckpt", "work/step_1"], "item 11a"),
-    (["test", "--ema"], "item 11a"),
-    (["test", "--all-ckpts"], "item 11a"),
-    (["test", "--sweep-from", "10"], "item 11a"),
-    (["test", "--sweep-to", "10"], "item 11a"),
+    (["train", "--cam-shards", "2"], "item 16"),
+    (["train", "--dist-coordinator", "localhost:12355"], "item 11a"),
+    (["train", "--dist-process-id", "1"], "item 11a"),
+    (["train", "--remat", "none"], "item 11a"),
+    (["train", "--num-temporal", "2", "--temporal-start-epoch", "3", "--epochs", "4"],
+     "item 17"),
     (["benchmark"], "item 23"),
     (["benchmark", "--eval", "--artifact", "x.stablehlo"], "item 21"),
 ])

@@ -27,8 +27,9 @@ over a seeded model by `cli/main.py` `checkpoint_model`), each strict on
 both sides.
 
 `variables_from_model` is the inverse: a model's JAX variables tree as
-numpy, which the eval-time conv-BN folding of `ckpt/convert.py`
-`fuse_conv_bn` takes (`cli/main.py` `test --fuse-conv-bn`).
+numpy (or that of some of its entries: an EMA, optimizer moments), which
+the eval-time conv-BN folding of `ckpt/convert.py` `fuse_conv_bn` takes
+(`cli/main.py` `test --fuse-conv-bn`) and `ckpt/io.py` saves.
 
 `load_text_tower` fills a `CLIPTextEncoder` from the text-tower tree of
 `veon_tpu/ckpt/convert.py` `convert_text_tower` (the `extras["text_tower"]`
@@ -146,12 +147,16 @@ def _stack(entries: Dict[Tuple[int, ...], np.ndarray]) -> np.ndarray:
                      for h in heads])
 
 
-def variables_from_model(model: nn.Module) -> Dict:
+def variables_from_model(model: nn.Module, tensors: Mapping[str, torch.Tensor] = None) -> Dict:
     """The JAX variables tree {"params", "batch_stats"} of `model` as nested
     dicts of numpy arrays: the inverse of `state_dict_from_jax`, so
-    `load_from_jax(model, variables_from_model(model))` changes nothing."""
+    `load_from_jax(model, variables_from_model(model))` changes nothing.
+    With `tensors` ({port name: tensor} for some of the model's entries:
+    an EMA, the optimizer moments of the trainable params) the tree of
+    those alone, laid out as the model's own entries of those names; the
+    inverse is `state_dict_from_jax(model, tree, strict=False)`."""
     groups: Dict[Tuple[str, ...], Dict[Tuple[int, ...], np.ndarray]] = {}
-    for name, t in model.state_dict().items():
+    for name, t in (model.state_dict() if tensors is None else tensors).items():
         parts = name.split(".")
         owner = model.get_submodule(".".join(parts[:-1]))
         col, leaf = _source(owner, parts[-1])

@@ -1,7 +1,8 @@
 """Command line of the port (counterpart of `veon_tpu/cli/main.py`): the
-`serve`, `selftest`, `test` (Occ3D mIoU, or POP-3D retrieval AP with
---retrieval), `cache-depth`, `create-infos` and `benchmark --eval`
-subcommands. `text_classifier`, the counterpart of the reference's
+`serve`, `selftest`, `train` (stage 2), `pretrain-depth` (stage 1),
+`publish`, `test` (Occ3D mIoU of the model or of training checkpoints, or
+POP-3D retrieval AP with --retrieval), `cache-depth`, `create-infos` and
+`benchmark --eval` subcommands. `text_classifier`, the counterpart of the reference's
 `_text_classifier`, lives in `nn/text.py` and is re-exported here.
 
     python -m veon_tpu_torch.cli.main serve --preset veon_b \
@@ -9,8 +10,18 @@ subcommands. `text_classifier`, the counterpart of the reference's
         [--load-from SAN_ViT-B.pth --depth-load-from depth.pth] \
         [--bpe-path bpe_simple_vocab_16e6.txt.gz]
     python -m veon_tpu_torch.cli.main selftest [--weights-dir ckpts/]
+    python -m veon_tpu_torch.cli.main pretrain-depth --preset veon_b \
+        --ann data/nuscenes/bevdetv2-nuscenes_infos_train.pkl --work-dir w1 \
+        [--depth-load-from depth_anything_v2_metric_vkitti_vitl.pth]
+    python -m veon_tpu_torch.cli.main train --preset veon_b --work-dir w2 \
+        [--load-from SAN.pth --depth-load-from depth.pth] [--auto-resume] \
+        [--accum-steps 2] [--depth-cache data/nuscenes/depth_cache/...]
+    python -m veon_tpu_torch.cli.main publish --ckpt w2/step_N \
+        --out-prefix veon_b_epoch24 [--ema]
     python -m veon_tpu_torch.cli.main test --data-root data/nuscenes \
         --ann data/nuscenes/bevdetv2-nuscenes_infos_val.pkl \
+        [--ckpt w2/step_N [--ema] | --all-ckpts --work-dir w2 \
+         [--sweep-from N] [--sweep-to M]] \
         [--pipeline 2] [--raw-uint8] [--fuse-conv-bn] [--num-temporal 2] \
         [--retrieval --retrieval-items retrieval_anns_val.csv]
     python -m veon_tpu_torch.cli.main cache-depth --ann ... --cache-dir ...
@@ -30,9 +41,11 @@ in bf16 unless VEON_ENTRY_DTYPE names another. Weights come from the
 reference's PyTorch checkpoints (`--load-from`, `--depth-load-from`,
 converted by `ckpt/convert.py`, LoRA folded in), else seeded stand-ins;
 `entry.serve_entry` also takes JAX variables and text-tower params.
-Orbax checkpoints (--ckpt and its sweep options) wait for ROADMAP Queue 1
-item 11a, the live-model and exported-artifact benchmarks for items 23
-and 21.
+Training writes `<work-dir>/step_<n>/` checkpoints (`ckpt/io.py`); `test
+--ckpt` loads one over the model, strict on both sides. Still refused,
+each naming its ROADMAP item: --cam-shards > 1 (16), the multi-process
+--dist-* options and --remat policies (11a), temporal training (17), the
+live-model and exported-artifact benchmarks (23, 21).
 """
 
 from __future__ import annotations
@@ -46,9 +59,11 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, torch_dtype
 from ..ckpt import convert as C
 from ..ckpt.from_jax import load_families, load_from_jax, variables_from_model
+from ..ckpt.io import (checkpoint_next_epoch, find_latest, list_checkpoints, load_checkpoint,
+                       publish_checkpoint, save_checkpoint)
 from ..cli.shapes import example_batch, example_batch_full
 from ..configs import presets
 from ..data.create_infos import create_infos
@@ -56,14 +71,21 @@ from ..data.loader import DataLoader
 from ..data.nuscenes import (NuScenesOccDataset, NuScenesRetrievalDataset, load_infos,
                              load_retrieval_csv)
 from ..data.transforms import normalize_in_graph
-from ..entry import build_model, serve_entry, serving_model
+from ..entry import _no_tf32, build_model, serve_entry, serving_model
 from ..eval.miou import MIoUMetric
 from ..eval.retrieval import retrieval_scores
 from ..model.veon import fused_classes
 from ..nn import text as text_mod
+from ..nn.dpt import DepthAnythingV2
+from ..nn.layers import init_random_
 from ..nn.text import text_classifier  # noqa: F401  (the CLI's `_text_classifier`)
+from ..nn.zoedepth import ZoeDepthNK
 from ..serve.server import TensorServer
-from ..train.loop import _to_device, evaluate_occ, write_depth_cache
+from ..train.depth_pretrain import depth_trainable, make_depth_pretrain_step, zoe_trainable
+from ..train.loop import _to_device, evaluate_occ, train_epochs, write_depth_cache
+from ..train.step import AdamW, create_train_state, make_train_step, stage2_trainable
+from ..utils.logging import MetricWriter
+from ..utils.params import param_table
 
 
 def build_cfg(args):
@@ -273,21 +295,35 @@ def occ_predictor(model, membership, depth_norm_method: str, raw_uint8: bool = F
     return predict
 
 
+def ckpt_eval_variables(state, ema: bool, path: str = ""):
+    """{"params", "batch_stats"} of a loaded checkpoint tree, or its EMA
+    shadow with `ema` (counterpart of `_ckpt_eval_variables`); --ema on a
+    published (stripped) checkpoint exits with the reason, for one --ckpt
+    and for each checkpoint of an --all-ckpts sweep alike."""
+    if ema and "ema_params" not in state:
+        raise SystemExit(
+            f"--ema with a published checkpoint{f' ({path})' if path else ''}: the EMA shadow "
+            "was either already published as params (publish --ema) or stripped - drop the "
+            "--ema flag")
+    return {"params": state["ema_params" if ema else "params"],
+            "batch_stats": state["ema_batch_stats" if ema else "batch_stats"]}
+
+
 def cmd_test(args):
     """Occ3D evaluation (counterpart of `cmd_test`): the val infos through
     the dataset and loader, one fusion-rule class grid per sample, the
-    camera-masked mIoU; with --retrieval the POP-3D evaluation instead.
-    Prints and returns the metrics."""
-    if args.ckpt or args.ema or args.all_ckpts or args.sweep_from is not None \
-            or args.sweep_to is not None:
-        raise NotImplementedError("orbax checkpoints (--ckpt, --ema, --all-ckpts, --sweep-from, "
-                                  "--sweep-to) are not ported yet: ROADMAP Queue 1 item 11a "
-                                  "(ckpt/io.py)")
+    camera-masked mIoU; --ckpt evaluates a training checkpoint (its EMA
+    shadow with --ema), --all-ckpts every step_<n> under --work-dir within
+    --sweep-from / --sweep-to; with --retrieval the POP-3D evaluation
+    instead. Prints and returns the metrics ({"sweep": {n: metrics}} for a
+    sweep)."""
     if args.retrieval:
         return cmd_test_retrieval(args)
     cfg = build_cfg(args)
     model, _tower, ovw, membership, _extras = build_model_and_params(
         cfg, args.load_from, args.depth_load_from, args.bpe_path, device=args.device)
+    if args.ckpt:
+        load_from_jax(model, ckpt_eval_variables(load_checkpoint(args.ckpt), args.ema, args.ckpt))
     if args.fuse_conv_bn:
         fuse_model_conv_bn(model)
     ds = NuScenesOccDataset(
@@ -297,6 +333,17 @@ def cmd_test(args):
     loader = DataLoader(ds, batch_size=1, shuffle=False, num_workers=args.workers,
                         drop_last=False)
     predict = occ_predictor(model, membership, cfg.data.depth_norm_method, cfg.data.raw_uint8)
+    if args.all_ckpts:
+        sweep = {}
+        for step_n, path in list_checkpoints(args.work_dir, args.sweep_from, args.sweep_to):
+            load_from_jax(model, ckpt_eval_variables(load_checkpoint(path), args.ema, path))
+            if args.fuse_conv_bn:
+                fuse_model_conv_bn(model)
+            sweep[step_n] = evaluate_occ(predict, loader, ovw, pipeline=args.pipeline,
+                                         device=ovw.device)
+            print(f"step {step_n}: {json.dumps(sweep[step_n])}")
+        print(json.dumps({"sweep": sweep}, indent=2))
+        return {"sweep": sweep}
     res = evaluate_occ(predict, loader, ovw, pipeline=args.pipeline, device=ovw.device)
     print(json.dumps(res, indent=2))
     return res
@@ -371,6 +418,136 @@ def cmd_cache_depth(args):
     return write_depth_cache(depth_fn, loader, args.cache_dir, cfg.data.cams, device=ovw.device)
 
 
+def refuse_unported_training(args):
+    """The `train` options that are not ported, each refused naming its
+    ROADMAP item before anything is built."""
+    if args.cam_shards > 1:
+        raise NotImplementedError("camera-sharded training (--cam-shards > 1) is not ported "
+                                  "yet: ROADMAP Queue 1 item 16")
+    if any(v is not None for v in (args.dist_coordinator, args.dist_num_processes,
+                                   args.dist_process_id)):
+        raise NotImplementedError("multi-process training (--dist-coordinator, "
+                                  "--dist-num-processes, --dist-process-id) is not ported yet: "
+                                  "ROADMAP Queue 1 item 11a (train/distributed.py)")
+    if args.remat != "full":
+        raise NotImplementedError(f"--remat {args.remat}: remat policies are not ported (the "
+                                  "stage-2 step fits the card without recompute): ROADMAP "
+                                  "Queue 1 item 11a")
+    if args.num_temporal > 1 and args.epochs > args.temporal_start_epoch:
+        raise NotImplementedError(
+            f"temporal training (--num-temporal {args.num_temporal} from --temporal-start-epoch "
+            f"{args.temporal_start_epoch} on, within --epochs {args.epochs}) is not ported yet: "
+            "ROADMAP Queue 1 item 17; the epochs before it run on the current frame")
+
+
+def cmd_train(args):
+    """Stage-2 training (counterpart of `cmd_train` on one card): the model
+    from the reference's checkpoints or seeded, the train infos through the
+    dataset (augmented, shuffled per epoch) and loader, AdamW over hsa /
+    lift_fusion / alignnet with `--accum-steps` micro-steps per update, the
+    EMA, a checkpoint per epoch in --work-dir with its NEXT_EPOCH marker,
+    and with --auto-resume the latest of them restored and only the epochs
+    after it run. Scalars go to <work-dir>/train.log.jsonl every 50
+    iterations. Returns {"start_epoch", "step"}."""
+    refuse_unported_training(args)
+    cfg = build_cfg(args)
+    model, _tower, ovw, membership, _extras = build_model_and_params(
+        cfg, args.load_from, args.depth_load_from, args.bpe_path, device=args.device)
+    print(param_table(model, stage2_trainable))
+    ds = NuScenesOccDataset(
+        infos=load_infos(args.ann), data_cfg=cfg.data, grid=cfg.grid,
+        num_temporal=cfg.num_temporal, is_train=True, data_root=args.data_root,
+        depth_cache_dir=args.depth_cache)
+    loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True, num_workers=args.workers)
+    tx = AdamW(lr=args.lr, accum_steps=args.accum_steps)
+    state = create_train_state(model, tx)
+    start_epoch = 0
+    latest = find_latest(args.work_dir) if args.auto_resume else None
+    if latest is not None:
+        state = load_checkpoint(latest, target=state)
+        start_epoch = checkpoint_next_epoch(latest)
+        if start_epoch is None:
+            start_epoch = state.step // max(len(ds) // args.batch_size, 1)
+            print(f"auto-resumed from {latest} (no NEXT_EPOCH marker; estimated epoch "
+                  f"~{start_epoch})")
+        else:
+            print(f"auto-resumed from {latest} (epoch {start_epoch})")
+    step = make_train_step(model, tx, cfg, membership)
+    with MetricWriter(args.work_dir, tensorboard=True) as writer:
+        state = train_epochs(state, step, loader, ovw, max_epochs=args.epochs,
+                             start_epoch=start_epoch, work_dir=args.work_dir,
+                             temporal_start_epoch=args.temporal_start_epoch, writer=writer)
+    return {"start_epoch": start_epoch, "step": state.step}
+
+
+def depth_tower(cfg, device="cuda", seed: int = 0):
+    """(tower, trainable predicate, converter) of stage 1 for the preset's
+    depth branch: DA-V2 or ZoeDepth-NK with its LoRA adapters, seeded, on
+    `device`, in the preset's dtype."""
+    dev = resolve_device(device)
+    _no_tf32(dev)
+    dt = torch_dtype(cfg.compute_dtype)
+    with torch.device(dev):
+        if cfg.depth_mode == "zoedepth":
+            tower = ZoeDepthNK(cfg.zoe, dtype=dt, lora=True)
+            trainable, convert = zoe_trainable, lambda sd: C.convert_zoedepth(sd, cfg.zoe)
+        else:
+            tower = DepthAnythingV2(cfg.depth, dtype=dt, lora=True)
+            trainable, convert = depth_trainable, lambda sd: C.convert_dav2(sd, cfg.depth)
+    init_random_(tower, torch.Generator(device=dev).manual_seed(seed))
+    return tower, trainable, convert
+
+
+def cmd_pretrain_depth(args):
+    """Stage-1 depth pretraining (counterpart of `cmd_pretrain_depth`): the
+    preset's depth tower with LoRA adapters fed the full input resolution
+    (DA-V2 resizes it to its lower bound, zoe takes it as it is), a
+    --depth-load-from dump converted and merged over the seeded tree (a
+    published dump carries no adapters: stage 1 trains fresh ones), the
+    adapters (and the DPT head, or zoe's decoder and bins head) trained
+    against the dataset's LiDAR depth, a checkpoint after each epoch.
+    Returns {"checkpoint", "losses"} (the last step's)."""
+    cfg = build_cfg(args)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, depth_input_size=cfg.data.input_size))
+    tower, trainable, convert = depth_tower(cfg, args.device)
+    if args.depth_load_from:
+        merged = C.merge_params(variables_from_model(tower)["params"],
+                                convert(C.load_torch_state_dict(args.depth_load_from)))
+        load_from_jax(tower, {"params": merged})
+    tx = AdamW(lr=args.lr, accum_steps=args.accum_steps)
+    state = create_train_state(tower, tx, init_updates=0, predicate=trainable)
+    step = make_depth_pretrain_step(tower, tx, cfg.grid, cfg.loss, norm_in_graph=(
+        cfg.data.depth_norm_method if cfg.data.raw_uint8 else None))
+    ds = NuScenesOccDataset(
+        infos=load_infos(args.ann), data_cfg=cfg.data, grid=cfg.grid, num_temporal=1,
+        is_train=True, data_root=args.data_root, load_occ_gt=False)
+    loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True, num_workers=args.workers)
+    dev = next(tower.parameters()).device
+    path, losses = None, {}
+    for epoch in range(args.epochs):
+        loader.set_epoch(epoch)
+        for it, batch in enumerate(loader):
+            b = {"depth_imgs": batch["depth_imgs"], "gt_depth": batch["gt_depth"]}
+            state, losses = step(state, _to_device(b, dev))
+            if (it + 1) % 50 == 0:
+                print(f"epoch {epoch + 1} iter {it + 1}: "
+                      + ", ".join(f"{k}={float(v):.4f}" for k, v in losses.items()))
+        path = save_checkpoint(args.work_dir, state.step, state)
+    return {"checkpoint": path, "losses": losses}
+
+
+def cmd_publish(args):
+    """Checkpoint publishing (counterpart of `cmd_publish`): a training
+    checkpoint stripped to inference weights (the EMA shadow with --ema),
+    its name stamped with the content hash. Returns the directory."""
+    if not args.ckpt or not args.out_prefix:
+        raise SystemExit("publish needs --ckpt <step dir> and --out-prefix <output path>")
+    final = publish_checkpoint(args.ckpt, args.out_prefix, ema=args.ema)
+    print("published:", final)
+    return final
+
+
 def cmd_create_infos(args):
     """Info generation (counterpart of `cmd_create_infos`): the raw nuScenes
     JSON tables under <data-root>/<version> into
@@ -412,12 +589,14 @@ def cmd_benchmark(args):
                           pipeline=args.pipeline, device=args.device)
 
 
-COMMANDS = {"serve": cmd_serve, "selftest": cmd_selftest, "test": cmd_test,
+COMMANDS = {"serve": cmd_serve, "selftest": cmd_selftest, "train": cmd_train,
+            "pretrain-depth": cmd_pretrain_depth, "publish": cmd_publish, "test": cmd_test,
             "cache-depth": cmd_cache_depth, "create-infos": cmd_create_infos,
             "benchmark": cmd_benchmark}
-_MODEL = ("serve", "selftest", "test", "cache-depth", "benchmark")
-_FRAMES = ("serve", "selftest", "test")  # the commands whose model takes frame counts and text
-_DATA = ("test", "cache-depth")
+_TRAIN = ("train", "pretrain-depth")
+_MODEL = ("serve", "selftest", "test", "cache-depth", "benchmark") + _TRAIN
+_FRAMES = ("serve", "selftest", "test", "train")  # the commands whose model takes frame counts and text
+_DATA = ("test", "cache-depth") + _TRAIN
 # (flags, argparse keywords, the subcommands that take the option); names
 # and defaults are the reference CLI's
 OPTIONS = (
@@ -436,17 +615,35 @@ OPTIONS = (
                             "test / cache-depth / benchmark --eval: the loader ships post-aug "
                             "uint8 frames; either way they are normalized on the device"),
      ("serve", "test", "cache-depth", "benchmark")),
-    (("--cam-shards",), dict(type=int, default=1, help="not ported: must be 1"), ("serve",)),
+    (("--cam-shards",), dict(type=int, default=1, help="not ported: must be 1"),
+     ("serve", "train")),
     (("--load-from",), dict(default=None, help="reference SAN/VEON semantic .pth"),
-     ("serve", "test")),
+     ("serve", "test", "train")),
     (("--depth-load-from",), dict(default=None, help="reference depth .pth of the preset's "
                                                      "branch: DA-V2, or ZoeDepth-NK for a zoe "
                                                      "preset"),
-     ("serve", "test", "cache-depth")),
+     ("serve", "test", "cache-depth") + _TRAIN),
     (("--data-root",), dict(default="data/nuscenes"), _DATA + ("create-infos",)),
     (("--ann",), dict(default="data/nuscenes/bevdetv2-nuscenes_infos_train.pkl"), _DATA),
     (("--workers",), dict(type=int, default=2, help="loader workers"), _DATA + ("benchmark",)),
-    (("--batch-size",), dict(type=int, default=1), ("cache-depth",)),
+    (("--batch-size",), dict(type=int, default=1), ("cache-depth",) + _TRAIN),
+    (("--work-dir",), dict(default="work_dir", help="training checkpoints step_<n>/ and "
+                           "train.log.jsonl; test --all-ckpts sweeps it"), ("test",) + _TRAIN),
+    (("--accum-steps",), dict(type=int, default=1, help="gradient accumulation micro-steps per "
+                              "optimizer update (effective batch = batch-size x this)"), _TRAIN),
+    (("--lr",), dict(type=float, default=1e-4), _TRAIN),
+    (("--epochs",), dict(type=int, default=24), _TRAIN),
+    (("--depth-cache",), dict(default=None, help="cached metric depth (cache-depth's output) "
+                              "in place of the frozen depth tower"), ("train",)),
+    (("--auto-resume",), dict(action="store_true", help="resume from the latest checkpoint in "
+                              "--work-dir"), ("train",)),
+    (("--temporal-start-epoch",), dict(type=int, default=0, help="epoch at which previous "
+                                       "frames engage"), ("train",)),
+    (("--remat",), dict(default="full", help="not ported: must be full (the step needs no "
+                        "recompute on the card)"), ("train",)),
+    (("--dist-coordinator",), dict(default=None, help="not ported"), ("train",)),
+    (("--dist-num-processes",), dict(type=int, default=None, help="not ported"), ("train",)),
+    (("--dist-process-id",), dict(type=int, default=None, help="not ported"), ("train",)),
     (("--pipeline",), dict(type=int, default=1, help="predictions in flight in the eval loop "
                            "(1: strictly serial; 2: frame N+1 uploaded and enqueued before "
                            "frame N's grid is read back)"), ("test", "benchmark")),
@@ -456,18 +653,24 @@ OPTIONS = (
                             help="POP-3D retrieval eval instead of Occ3D mIoU"), ("test",)),
     (("--retrieval-items",), dict(default=None, help="retrieval_anns csv, or a json list of "
                                   "{token, prompt, anno_file, points_file}"), ("test",)),
-    (("--ckpt",), dict(default=None, help="orbax checkpoint: not ported"), ("test",)),
-    (("--ema",), dict(action="store_true", help="not ported"), ("test",)),
-    (("--all-ckpts",), dict(action="store_true", help="not ported"), ("test",)),
-    (("--sweep-from",), dict(type=int, default=None, help="not ported"), ("test",)),
-    (("--sweep-to",), dict(type=int, default=None, help="not ported"), ("test",)),
+    (("--ckpt",), dict(default=None, help="training checkpoint step_<n> (or a published one)"),
+     ("test", "publish")),
+    (("--ema",), dict(action="store_true", help="the checkpoint's EMA shadow"),
+     ("test", "publish")),
+    (("--all-ckpts",), dict(action="store_true", help="evaluate every checkpoint in "
+                            "--work-dir"), ("test",)),
+    (("--sweep-from",), dict(type=int, default=None, help="test --all-ckpts: skip "
+                             "checkpoints below this step"), ("test",)),
+    (("--sweep-to",), dict(type=int, default=None, help="test --all-ckpts: skip checkpoints "
+                           "above this step"), ("test",)),
     (("--cache-dir",), dict(default="data/nuscenes/depth_cache/depth_dav2"), ("cache-depth",)),
     (("--version",), dict(default="v1.0-trainval", help="nuScenes table version directory"),
      ("create-infos",)),
     (("--val-scenes",), dict(default=None, help="comma-separated scene names, or a file with "
                              "one name per line, routed to the val split"), ("create-infos",)),
-    (("--out-prefix",), dict(default=None, help="output pickle prefix (default "
-                             "<data-root>/bevdetv2-nuscenes)"), ("create-infos",)),
+    (("--out-prefix",), dict(default=None, help="create-infos: output pickle prefix (default "
+                             "<data-root>/bevdetv2-nuscenes); publish: the output path, "
+                             "stamped -<sha8>"), ("create-infos", "publish")),
     (("--eval",), dict(dest="eval_loop", action="store_true", help="time the `test` eval "
                        "loop on a synthetic shard"), ("benchmark",)),
     (("--frames",), dict(type=int, default=12, help="benchmark --eval: synthetic shard size"),

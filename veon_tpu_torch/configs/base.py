@@ -130,15 +130,17 @@ class PropagationConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DepthConfig:
-    """DepthAnythingV2 adaptor. `lora_r`/`lora_alpha` describe the adapters
-    of a depth-pretrain checkpoint; the port folds them into the base
-    weights when it loads one (`ckpt/convert.py` `merge_lora`, scale
-    lora_alpha / r), so its depth tower has none."""
+    """DepthAnythingV2 adaptor. `use_lora`/`lora_r`/`lora_alpha` describe
+    the adapters of a depth-pretrain checkpoint; the serving tower folds
+    them into the base weights when it loads one (`ckpt/convert.py`
+    `merge_lora`, scale lora_alpha / r), so it has none. The stage-1 tower
+    (`pretrain-depth`) is built with them (`nn/dpt.py` lora=True)."""
 
     encoder: str = "vitl"
     features: int = 256
     out_channels: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
     max_depth: float = 80.0
+    use_lora: bool = True
     lora_r: int = 16
     lora_alpha: int = 1
 
@@ -161,8 +163,9 @@ class ZoeConfig:
     """ZoeDepth-NK on MiDaS DPT-BEiT-L-384: the BEiT-L/16 trunk, the MiDaS
     decoder and the kitti metric-bins head. `use_lora`/`lora_r` describe
     the adapters of a depth-pretrain checkpoint; like `DepthConfig`, the
-    port folds them into the base weights when it loads one (scale 1 / r,
-    the adapters' alpha 1), so its tower has none."""
+    serving tower folds them into the base weights when it loads one
+    (scale 1 / r, the adapters' alpha 1), so it has none; the stage-1
+    tower is built with them (`nn/zoedepth.py` lora=True)."""
 
     # BEiT-L/16-384 trunk
     width: int = 1024
@@ -228,7 +231,7 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    """Stage-2 occupancy loss weights."""
+    """Stage-2 occupancy loss weights and the stage-1 depth bin-CE weight."""
 
     out_channel: int = 18
     empty_idx: int = 17
@@ -241,6 +244,8 @@ class LossConfig:
     loss_featalign_det_weight: float = 35.0
     loss_featalign_soft_weight: float = 25.0
     bin_class_weights: Tuple[float, float] = (1.0, 0.5)
+    # depth pretraining (stage 1)
+    loss_depth_ce_weight: float = 0.05
 
 
 @dataclasses.dataclass(frozen=True)

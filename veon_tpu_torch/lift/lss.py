@@ -1,5 +1,7 @@
 """Lift-Splat-Shoot view transform (counterpart of `veon_tpu/lift/lss.py`):
-`min_pool_depth`, `two_hot_depth`, `banded_two_hot(_with_floor)` and
+`min_pool_depth`, `two_hot_depth`, `one_hot_depth` and
+`depth_bins_one_hot_gt` (the stage-1 losses' targets),
+`banded_two_hot(_with_floor)` and
 `LSSLift` with its three lifts:
   * `lift_presorted`: fixed rig, rank sort precomputed once (serving);
   * `lift_from_metric`: K-banded two-hot straight from metric depth plus
@@ -48,6 +50,30 @@ def two_hot_depth(depth: torch.Tensor, grid: GridConfig, gamma: float = 4.0) -> 
     centers = torch.arange(D + 1, dtype=depth.dtype, device=depth.device) * dd + (d0 + dd / 2)
     gap = _clamp_gap(-(depth[..., None] - centers).abs() * gamma)
     return torch.softmax(gap, dim=-1)[..., :D].movedim(-1, -3)
+
+
+def one_hot_depth(depth: torch.Tensor, grid: GridConfig) -> torch.Tensor:
+    """Metric depth (..., h, w) -> (..., D, h, w) hard one-hot over the D
+    bins: the nearest of D+1 centres (first on a tie, depth clipped at
+    500 m), the far overflow bin dropped."""
+    D = grid.num_depth_bins
+    d0, _, dd = grid.depth
+    centers = torch.arange(D + 1, dtype=depth.dtype, device=depth.device) * dd + (d0 + dd / 2)
+    gap = -(torch.clamp(depth, max=500.0)[..., None] - centers).abs()
+    onehot = torch.nn.functional.one_hot(gap.argmax(-1), D + 1).to(depth.dtype)[..., :D]
+    return onehot.movedim(-1, -3)
+
+
+def depth_bins_one_hot_gt(gt_depth: torch.Tensor, grid: GridConfig, downsample: int
+                          ) -> torch.Tensor:
+    """Sparse LiDAR depth (..., H, W) -> (..., H/ds, W/ds, D) one-hot bin
+    targets: min-pooled (0 = missing), binned as (d - (d0 - dd)) / dd, out
+    of range -> bin 0, which is dropped (all-zero rows: no GT there)."""
+    D = grid.num_depth_bins
+    d0, _, dd = grid.depth
+    q = (min_pool_depth(gt_depth, downsample) - (d0 - dd)) / dd
+    q = torch.where((q < D + 1) & (q >= 0.0), q, torch.zeros_like(q))
+    return torch.nn.functional.one_hot(q.long(), D + 1).to(gt_depth.dtype)[..., 1:]
 
 
 def banded_two_hot_with_floor(depth: torch.Tensor, grid: GridConfig, K: int,

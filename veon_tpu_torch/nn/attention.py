@@ -75,13 +75,15 @@ class FusedQKVAttention(nn.Module):
 
 
 class SimpleAttention(nn.Module):
-    """timm / DINOv2 MHA: fused qkv Dense, separate proj."""
+    """timm / DINOv2 MHA: fused qkv Dense, separate proj, optional LoRA on both."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, dtype=torch.float32,
+                 lora_r: int = 0, lora_alpha: float = 1.0):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = LoRADense(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
-        self.proj = LoRADense(dim, dim, dtype=dtype)
+        self.qkv = LoRADense(dim, 3 * dim, bias=qkv_bias, dtype=dtype, lora_r=lora_r,
+                             lora_alpha=lora_alpha)
+        self.proj = LoRADense(dim, dim, dtype=dtype, lora_r=lora_r, lora_alpha=lora_alpha)
 
     def forward(self, x):
         E = x.shape[-1]

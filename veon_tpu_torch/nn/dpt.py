@@ -90,16 +90,20 @@ class DPTHead(nn.Module):
 
 class DepthAnythingV2(nn.Module):
     """DINOv2 -> DPT -> metric depth = sigmoid * max_depth.
-    images (B, H, W, 3) DA-V2-normalized -> (B, H, W)."""
+    images (B, H, W, 3) DA-V2-normalized -> (B, H, W). lora=True (the
+    stage-1 tower) gives the trunk cfg.lora_r adapters with cfg.lora_alpha
+    where cfg.use_lora is set; the serving tower has none (folded at load)."""
 
-    def __init__(self, cfg: DepthConfig, dtype=torch.float32):
+    def __init__(self, cfg: DepthConfig, dtype=torch.float32, lora: bool = False):
         super().__init__()
         vit = cfg.vit
         self.max_depth = cfg.max_depth
         self.patch_size = vit.patch_size
         self.pretrained = DinoV2Trunk(vit.width, vit.depth, vit.heads, patch_size=vit.patch_size,
                                       pretrain_grid=vit.pretrain_grid[0],
-                                      take_layers=cfg.intermediate_layer_idx, dtype=dtype)
+                                      take_layers=cfg.intermediate_layer_idx, dtype=dtype,
+                                      lora_r=cfg.lora_r if lora and cfg.use_lora else 0,
+                                      lora_alpha=cfg.lora_alpha)
         self.depth_head = DPTHead(vit.width, cfg.features, cfg.out_channels,
                                   patch_size=vit.patch_size, dtype=dtype)
 

@@ -162,16 +162,29 @@ class BatchNorm(nn.Module):
 
 
 class LoRADense(nn.Module):
-    """LoRADense with lora_r=0 (adapters folded away for serving): a Dense
-    whose params sit under `base`, as in the flax tree."""
+    """Dense whose params sit under `base`, as in the flax tree, with
+    optional LoRA adapters: y = base(x) + ((x @ A) @ B) * (alpha / r).
+    lora_A (in, r) and lora_B (r, out) are fp32 params cast to the compute
+    dtype in the product; `init_random_` gives A flax's
+    variance_scaling(1/3, fan_in, uniform) and B zeros. With lora_r=0 (the
+    serving towers, adapters folded at load) it is the Dense alone."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, lora_r: int = 0, lora_alpha: float = 1.0):
         super().__init__()
+        self.dtype, self.lora_r = dtype, lora_r
         self.base = Dense(in_features, out_features, bias, dtype)
+        if lora_r > 0:
+            self.scaling = lora_alpha / lora_r
+            self.lora_A = nn.Parameter(torch.empty(in_features, lora_r))
+            self.lora_B = nn.Parameter(torch.zeros(lora_r, out_features))
 
     def forward(self, x):
-        return self.base(x)
+        y = self.base(x)
+        if self.lora_r > 0:
+            x = x.to(self.dtype)
+            y = y + ((x @ self.lora_A.to(self.dtype)) @ self.lora_B.to(self.dtype)) * self.scaling
+        return y
 
 
 class MLP(nn.Module):
@@ -194,14 +207,14 @@ class MLP(nn.Module):
 
 
 class TransformerMLP(nn.Module):
-    """ViT FFN: fc1 -> act -> fc2."""
+    """ViT FFN: fc1 -> act -> fc2, with optional LoRA on both linears."""
 
     def __init__(self, dim: int, hidden_dim: int, act: Callable = gelu_exact,
-                 dtype=torch.float32):
+                 dtype=torch.float32, lora_r: int = 0, lora_alpha: float = 1.0):
         super().__init__()
         self.act = act
-        self.fc1 = LoRADense(dim, hidden_dim, dtype=dtype)
-        self.fc2 = LoRADense(hidden_dim, dim, dtype=dtype)
+        self.fc1 = LoRADense(dim, hidden_dim, dtype=dtype, lora_r=lora_r, lora_alpha=lora_alpha)
+        self.fc2 = LoRADense(hidden_dim, dim, dtype=dtype, lora_r=lora_r, lora_alpha=lora_alpha)
 
     def forward(self, x):
         return self.fc2(self.act(self.fc1(x)))
@@ -287,7 +300,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     unit norm scales and LayerScales, N(0, 0.02) embeddings and BEiT
     relative-position tables (timm's init; flax's is zeros, which would
     leave the bias path idle), token embeddings N(0, 1/features) as
-    flax's Embed."""
+    flax's Embed; LoRA adapters as flax's (A uniform in +-1/sqrt(fan_in),
+    B zeros)."""
     for m in module.modules():
         w = getattr(m, "weight", None)
         if isinstance(m, Embed):
@@ -297,7 +311,12 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             w.copy_(torch.randn(w.shape, generator=generator, device=w.device) / math.sqrt(fan_in))
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in _NORMAL_002:
+        if leaf == "lora_A":  # flax variance_scaling(1/3, fan_in, uniform)
+            bound = 1.0 / math.sqrt(p.shape[0])
+            p.copy_((torch.rand(p.shape, generator=generator, device=p.device) * 2 - 1) * bound)
+        elif leaf == "lora_B":
+            p.zero_()
+        elif leaf in _NORMAL_002:
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
         elif leaf == "cls_token":
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 1e-6)

@@ -208,15 +208,17 @@ class TimmBlock(nn.Module):
 
 
 class DinoBlock(nn.Module):
-    """DINOv2 block with LayerScale."""
+    """DINOv2 block with LayerScale and optional LoRA on every linear."""
 
-    def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, dtype=torch.float32):
+    def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, dtype=torch.float32,
+                 lora_r: int = 0, lora_alpha: float = 1.0):
         super().__init__()
+        lora = dict(lora_r=lora_r, lora_alpha=lora_alpha)
         self.norm1 = LayerNorm(width, eps=1e-6)
-        self.attn = SimpleAttention(width, heads, dtype=dtype)
+        self.attn = SimpleAttention(width, heads, dtype=dtype, **lora)
         self.ls1_gamma = nn.Parameter(torch.ones(width))
         self.norm2 = LayerNorm(width, eps=1e-6)
-        self.mlp = TransformerMLP(width, int(width * mlp_ratio), dtype=dtype)
+        self.mlp = TransformerMLP(width, int(width * mlp_ratio), dtype=dtype, **lora)
         self.ls2_gamma = nn.Parameter(torch.ones(width))
 
     def forward(self, x):
@@ -228,11 +230,13 @@ class DinoBlock(nn.Module):
 
 class DinoV2Trunk(nn.Module):
     """DINOv2 ViT trunk returning normed intermediate layers
-    [(patch_tokens (B, L, C), cls (B, C)), ...]."""
+    [(patch_tokens (B, L, C), cls (B, C)), ...]; lora_r > 0 puts adapters
+    on every block's linears (the stage-1 trainable tower)."""
 
     def __init__(self, width: int, depth: int, heads: int, patch_size: int = 14,
                  pretrain_grid: int = 37, take_layers: Tuple[int, ...] = (4, 11, 17, 23),
-                 interpolate_offset: float = 0.1, dtype=torch.float32):
+                 interpolate_offset: float = 0.1, dtype=torch.float32, lora_r: int = 0,
+                 lora_alpha: float = 1.0):
         super().__init__()
         self.width, self.patch_size, self.pretrain_grid = width, patch_size, pretrain_grid
         self.interpolate_offset = interpolate_offset
@@ -244,7 +248,8 @@ class DinoV2Trunk(nn.Module):
         self.bounds = list(zip(bounds[:-1], bounds[1:]))
         for a, b in self.bounds:
             self.add_module(f"segment_{a}_{b}", ScanBlocks(
-                b - a, lambda: DinoBlock(width, heads, dtype=dtype)))
+                b - a, lambda: DinoBlock(width, heads, dtype=dtype, lora_r=lora_r,
+                                         lora_alpha=lora_alpha)))
 
     def forward(self, images) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         B, H, W, _ = images.shape

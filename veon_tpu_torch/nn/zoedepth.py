@@ -10,9 +10,10 @@ through the attractor loop (the adaptor comments its update out),
 inv/mean attractors with alpha 1000, temperature in [0.0212, 50].
 
 Submodules carry the flax module names, so `ckpt/from_jax.py` maps a JAX
-tree onto them. A LoRA checkpoint's adapters are folded into the base
-weights at load (`ckpt/convert.py` `merge_lora`), so no `LoRADense` here
-carries any.
+tree onto them. The serving tower folds a LoRA checkpoint's adapters into
+the base weights at load (`ckpt/convert.py` `merge_lora`), so its
+`LoRADense`s carry none; the stage-1 tower (lora=True) has cfg.lora_r
+adapters, alpha 1, on every block's qkv and every readout projection.
 """
 
 from __future__ import annotations
@@ -90,10 +91,10 @@ class BeitAttention(nn.Module):
     bias cast to the logits' dtype, as the JAX module adds it."""
 
     def __init__(self, dim: int, heads: int, pretrain_window=PRETRAIN_WINDOW,
-                 dtype=torch.float32):
+                 dtype=torch.float32, lora_r: int = 0):
         super().__init__()
         self.heads, self.pretrain_window = heads, tuple(pretrain_window)
-        self.qkv = LoRADense(dim, 3 * dim, bias=False, dtype=dtype)
+        self.qkv = LoRADense(dim, 3 * dim, bias=False, dtype=dtype, lora_r=lora_r)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
         rows = (2 * pretrain_window[0] - 1) * (2 * pretrain_window[1] - 1) + 3
@@ -117,11 +118,12 @@ class BeitBlock(nn.Module):
     """Pre-norm BEiT block (eps 1e-6) with LayerScale gamma_1 / gamma_2
     and an exact-GELU MLP."""
 
-    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0, dtype=torch.float32):
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0, dtype=torch.float32,
+                 lora_r: int = 0):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = BeitAttention(dim, heads, dtype=dtype)
+        self.attn = BeitAttention(dim, heads, dtype=dtype, lora_r=lora_r)
         self.gamma_1 = nn.Parameter(torch.ones(dim))
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp_fc1 = Dense(dim, hidden, dtype=dtype)
@@ -141,13 +143,13 @@ class BeitTrunk(nn.Module):
 
     def __init__(self, width: int = 1024, depth: int = 24, heads: int = 16,
                  patch_size: int = 16, hooks: Tuple[int, ...] = (5, 11, 17, 23),
-                 dtype=torch.float32):
+                 dtype=torch.float32, lora_r: int = 0):
         super().__init__()
         self.width, self.depth, self.patch_size, self.hooks = width, depth, patch_size, hooks
         self.patch_embed = Conv2d(3, width, patch_size, stride=patch_size, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, width))
         for i in range(depth):
-            self.add_module(f"blocks_{i}", BeitBlock(width, heads, dtype=dtype))
+            self.add_module(f"blocks_{i}", BeitBlock(width, heads, dtype=dtype, lora_r=lora_r))
 
     def forward(self, images):
         B, H, W, _ = images.shape
@@ -166,9 +168,9 @@ class ProjectReadout(nn.Module):
     """MiDaS "project" readout: cls concatenated onto every token, then
     Linear(2C -> C) + GELU."""
 
-    def __init__(self, dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, dtype=torch.float32, lora_r: int = 0):
         super().__init__()
-        self.project = LoRADense(2 * dim, dim, dtype=dtype)
+        self.project = LoRADense(2 * dim, dim, dtype=dtype, lora_r=lora_r)
 
     def forward(self, tokens):  # (B, 1+L, C)
         cls = tokens[:, :1].expand_as(tokens[:, 1:])
@@ -181,13 +183,14 @@ class MidasDPT(nn.Module):
     cascade, the 32-channel head activation and the relative depth.
     Returns (rel_depth (B, H, W), feats = [out32, l4_rn, r4, r3, r2, r1])."""
 
-    def __init__(self, cfg: ZoeConfig, dtype=torch.float32):
+    def __init__(self, cfg: ZoeConfig, dtype=torch.float32, lora: bool = False):
         super().__init__()
         c, pc = cfg, cfg.pyramid_channels
+        r = c.lora_r if lora and c.use_lora else 0
         self.width = c.width
-        self.pretrained = BeitTrunk(c.width, c.depth, c.heads, c.patch_size, c.hooks, dtype)
+        self.pretrained = BeitTrunk(c.width, c.depth, c.heads, c.patch_size, c.hooks, dtype, r)
         for i in range(4):
-            self.add_module(f"readout_{i}", ProjectReadout(c.width, dtype))
+            self.add_module(f"readout_{i}", ProjectReadout(c.width, dtype, r))
             self.add_module(f"project_{i}", Conv2d(c.width, pc[i], 1, dtype=dtype))
         self.resize_0 = ConvTranspose2d(pc[0], pc[0], 4, dtype=dtype)
         self.resize_1 = ConvTranspose2d(pc[1], pc[1], 2, dtype=dtype)
@@ -268,13 +271,14 @@ def log_binomial(n_bins: int) -> np.ndarray:
 
 class ZoeDepthNK(nn.Module):
     """The ZoeDepth-NK metric head on the MiDaS core: images (B, H, W, 3)
-    midas-normalized -> (B, H, W) metric depth in the compute dtype."""
+    midas-normalized -> (B, H, W) metric depth in the compute dtype.
+    lora=True: the stage-1 tower, with adapters where cfg.use_lora is set."""
 
-    def __init__(self, cfg: ZoeConfig, dtype=torch.float32):
+    def __init__(self, cfg: ZoeConfig, dtype=torch.float32, lora: bool = False):
         super().__init__()
         c, f, E = cfg, cfg.features, cfg.bin_embedding_dim
         self.cfg = c
-        self.core = MidasDPT(c, dtype)
+        self.core = MidasDPT(c, dtype, lora)
         self.conv2 = Conv2d(f, f, 1, dtype=dtype)
         self.seed_bin_regressor = _ConvMLP(f, E // 2, c.n_bins, True, dtype)
         self.seed_projector = _ConvMLP(f, E // 2, E, dtype=dtype)

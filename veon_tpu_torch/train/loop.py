@@ -1,13 +1,13 @@
-"""The dataset-driven loops: Occ3D evaluation and the depth-cache writer
-(counterpart of the eval part of `veon_tpu/train/loop.py`), with the
-host-to-device boundary they share.
+"""The dataset-driven loops (counterpart of `veon_tpu/train/loop.py`): the
+stage-2 epoch loop with its per-epoch checkpoints, Occ3D evaluation and
+the depth-cache writer, with the host-to-device boundary they share.
 
 Batches cross to the device as JAX's `jnp.asarray` takes them with 64-bit
 mode off: float64 becomes float32 and int64 int32, so the geometry never
 runs in float64. On the card a batch is copied through pinned memory with
 `non_blocking=True`; `pipeline=N` keeps N frames in flight, the next
 frame enqueued before the oldest frame's grid is read back, and drains in
-order. The epoch loop `train_epochs` waits for ROADMAP Queue 1 item 11a.
+order.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+from ..ckpt.io import save_checkpoint
 
 _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
            np.dtype(np.uint64): np.uint32}
@@ -58,6 +60,64 @@ def prefetch_to_device(batches, device, size: int = 2):
             yield queue.popleft()
     while queue:
         yield queue.popleft()
+
+
+def _truncate_temporal(batch):
+    """The current frame only, with `prev_lidarego2global` set to the
+    identity: the epochs before the previous frames engage (the reference's
+    SequentialControlHook)."""
+    out = dict(batch)
+    for k in ("imgs", "depth_imgs", "depth_preds"):
+        if k in out:
+            out[k] = out[k][:, :1]
+    metas = dict(out["metas"])
+    for k in ("sensor2egos", "ego2globals", "intrins", "post_rots", "post_trans"):
+        metas[k] = metas[k][:, :1]
+    metas["prev_lidarego2global"] = (metas["prev_lidarego2global"][:, :1] * 0
+                                     + np.eye(4, dtype=np.float32))
+    out["metas"] = metas
+    return out
+
+
+def train_epochs(state, step_fn, loader, ov_weight, max_epochs: int = 24, start_epoch: int = 0,
+                 work_dir: str = "work_dir", log_interval: int = 50,
+                 temporal_start_epoch: int = 0, log_fn: Callable[[str], None] = print,
+                 writer=None):
+    """The stage-2 epoch loop: per epoch, `loader.set_epoch`, each batch
+    without token / gt_depth / mask_lidar, truncated to the current frame
+    before `temporal_start_epoch`, with `ov_weight` and the epoch (which the
+    loss's priority-ignorance schedule reads), double-buffered onto the
+    model's device and stepped; every `log_interval` iterations a log line
+    (and `writer`, a `utils/logging.py` MetricWriter, gets the scalars and
+    sec_per_iter); after each epoch a checkpoint with `next_epoch`. Returns
+    the state."""
+    os.makedirs(work_dir, exist_ok=True)
+    device = next(state.model.parameters()).device
+    for epoch in range(start_epoch, max_epochs):
+        loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+
+        def prepped():
+            for batch in loader:
+                for k in ("token", "gt_depth", "mask_lidar"):
+                    batch.pop(k, None)
+                if epoch < temporal_start_epoch:
+                    batch = _truncate_temporal(batch)
+                yield batch
+
+        for it, batch in enumerate(prefetch_to_device(prepped(), device, size=2)):
+            batch["ov_weight"], batch["epoch"] = ov_weight, epoch
+            state, losses = step_fn(state, batch)
+            if (it + 1) % log_interval == 0:
+                dt = (time.perf_counter() - t0) / (it + 1)
+                scalars = {k: float(v) for k, v in losses.items()}
+                msg = ", ".join(f"{k}: {v:.4f}" for k, v in sorted(scalars.items()))
+                log_fn(f"epoch {epoch + 1} iter {it + 1}/{len(loader)} ({dt:.2f}s/iter) {msg}")
+                if writer is not None:
+                    writer.write(dict(scalars, sec_per_iter=dt), state.step, epoch)
+        save_checkpoint(work_dir, state.step, state, next_epoch=epoch + 1)
+        log_fn(f"saved checkpoint for epoch {epoch + 1}")
+    return state
 
 
 def _start_readback(x: torch.Tensor):

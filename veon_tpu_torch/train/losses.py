@@ -1,7 +1,10 @@
-"""Stage-2 occupancy loss (counterpart of `veon_tpu/train/losses.py`):
-class-weighted binary-occupancy CE plus the 2D->3D distillation of the
-per-pixel CLIP semantics into the voxel embeddings, vectorised as masked
-reductions with static shapes. Stage-1 depth losses are not ported yet."""
+"""Training losses (counterpart of `veon_tpu/train/losses.py`): the
+stage-2 occupancy loss (class-weighted binary-occupancy CE plus the 2D->3D
+distillation of the per-pixel CLIP semantics into the voxel embeddings,
+vectorised as masked reductions with static shapes), the stage-1 depth
+losses (SILog plus the two-hot bin CE), and the reference's available but
+unused terms: the scene-completion affinity losses, the 2D pixel alignment
+and the velocity L1."""
 
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch.nn.functional as F
 
 from ..configs.base import GridConfig, LossConfig
 from ..geometry.frustum import compose_se3, se3_inverse
+from ..lift.lss import depth_bins_one_hot_gt, one_hot_depth, two_hot_depth
 from ..nn.text import merge_classes_max
 from ..ops.grid_sample import grid_sample_2d
 
@@ -58,6 +62,28 @@ def ce_sem_occ_loss(sem_occ, voxel_semantics, class_weights: Optional[Sequence[f
     w = torch.as_tensor(np.asarray(class_weights, np.float32), device=sem_occ.device)
     tgt = voxel_semantics.clamp(0, C - 1).long()
     return _weighted_ce(sem_occ, tgt, w, voxel_semantics != ignore_idx)
+
+
+def pixel_align_2d_loss(sem_seg_ds, clip_feat, ov_weight):
+    """2D pixel-alignment cosine loss (unused by the shipping config): the
+    CLIP-projected map pulled toward the text embedding of each pixel's
+    argmax class. sem_seg_ds (B, N, H, W, P) class scores; clip_feat
+    (B, N, h, w, D), nearest-resized to (H, W); ov_weight (P+1, D), the
+    background row dropped. Returns 1 - mean cosine."""
+    pseudo = ov_weight[:-1].to(clip_feat.dtype)[sem_seg_ds.argmax(-1)]
+    H, W = sem_seg_ds.shape[2:4]
+    h, w = clip_feat.shape[2:4]
+    if (h, w) != (H, W):
+        dev = clip_feat.device
+        iy = (torch.arange(H, device=dev) * h) // H
+        ix = (torch.arange(W, device=dev) * w) // W
+        clip_feat = clip_feat[:, :, iy][:, :, :, ix]
+    return 1.0 - _cosine(pseudo, clip_feat).mean()
+
+
+def vel_loss(pred, gt):
+    """L1 velocity loss."""
+    return (pred.float() - gt.float()).abs().mean()
 
 
 def _cosine(a, b, eps=1e-6):
@@ -222,3 +248,99 @@ def occupancy_loss(outputs: Dict[str, torch.Tensor], voxel_semantics, mask_camer
     if cfg.ov_class_number != 0:
         losses["loss_featalign_soft"] = loss_soft * cfg.loss_featalign_soft_weight
     return losses
+
+
+# auxiliary scene-completion losses (available, unused by the shipping config)
+
+
+def geo_scal_loss(pred_logits, target, free_idx: int = 17, ignore_idx: int = 255):
+    """Geometric scene-completion affinity loss: precision, recall and
+    specificity BCE on the non-free probability. pred_logits
+    (B, X, Y, Z, C); target (B, X, Y, Z) ints."""
+    empty = torch.softmax(pred_logits.float(), -1)[..., free_idx]
+    nonempty = 1.0 - empty
+    mask = (target != ignore_idx).float()
+    gt_nonempty = ((target != free_idx) & (target != ignore_idx)).float()
+    eps = 1e-6
+    inter = (nonempty * gt_nonempty * mask).sum()
+    precision = inter / torch.clamp_min((nonempty * mask).sum(), eps)
+    recall = inter / torch.clamp_min(gt_nonempty.sum(), eps)
+    spec = (empty * (1 - gt_nonempty) * mask).sum() / torch.clamp_min(
+        ((1 - gt_nonempty) * mask).sum(), eps)
+    return (-torch.log(torch.clamp(precision, eps, 1.0)) - torch.log(torch.clamp(recall, eps, 1.0))
+            - torch.log(torch.clamp(spec, eps, 1.0)))
+
+
+def sem_scal_loss(pred_logits, target, ignore_idx: int = 255):
+    """Semantic scene-completion affinity loss: per-class precision and
+    recall BCE, averaged over the classes present."""
+    probs = torch.softmax(pred_logits.float(), -1)
+    mask = (target != ignore_idx).float()
+    eps = 1e-6
+    total, count = 0.0, 0.0
+    for c in range(pred_logits.shape[-1]):
+        p = probs[..., c] * mask
+        gt_c = (target == c).float() * mask
+        present = (gt_c.sum() > 0).float()
+        inter = (p * gt_c).sum()
+        precision = inter / torch.clamp_min(p.sum(), eps)
+        recall = inter / torch.clamp_min(gt_c.sum(), eps)
+        loss_c = -torch.log(torch.clamp(precision, eps, 1.0)) - torch.log(
+            torch.clamp(recall, eps, 1.0))
+        total = total + loss_c * present
+        count = count + present
+    return total / torch.clamp_min(count, 1.0)
+
+
+# stage-1 depth losses
+
+
+def silog_loss(pred, gt, invalid_above: float = 9225.0):
+    """ZoeDepth SILog over the valid pixels (gt < 9225):
+    sqrt(var(g) + 0.15 mean(g)^2) clipped at 2, g the log ratio."""
+    valid = (gt < invalid_above).float()
+    n = torch.clamp_min(valid.sum(), 1.0)
+    alpha = 1e-7
+    g = (torch.log(pred + alpha) - torch.log(gt + alpha)) * valid
+    mean = g.sum() / n
+    var = ((g - mean).square() * valid).sum() / n
+    dg = var + 0.15 * mean.square()
+    return torch.clamp(torch.sqrt(torch.clamp_min(dg, 1e-12)), max=2.0)
+
+
+def _masked_bce(p, t, fg):
+    """Summed BCE per row of bin probabilities p against targets t, mean
+    over the rows with fg = 1 (p clipped at 1e-12 and 1 - 1e-12)."""
+    eps = 1e-12
+    p32 = torch.clamp(p.float(), eps, 1 - eps)
+    bce = -(t * torch.log(p32) + (1 - t) * torch.log1p(-p32))
+    return (bce.sum(-1) * fg).sum() / torch.clamp_min(fg.sum(), 1.0)
+
+
+def depth_bin_ce_loss(pred_depth, gt_depth, grid: GridConfig):
+    """Binary CE between the two-hot bins of the predicted depth and the
+    one-hot bins of the GT, over the pixels whose GT is in range
+    (unweighted mean)."""
+    D = grid.num_depth_bins
+    p = two_hot_depth(pred_depth, grid).movedim(-3, -1).reshape(-1, D)
+    t = one_hot_depth(gt_depth, grid).movedim(-3, -1).reshape(-1, D)
+    return _masked_bce(p, t, (t.amax(-1) > 0.0).float())
+
+
+def depth_bce_loss(pred_bins, gt_depth, grid: GridConfig, downsample: int,
+                   weight: float = 0.05):
+    """The legacy bin-BCE depth loss: predicted bin probabilities
+    (..., D, h, w) against the downsampled one-hot GT, summed BCE over the
+    foreground pixels, times `weight`."""
+    D = grid.num_depth_bins
+    labels = depth_bins_one_hot_gt(gt_depth, grid, downsample).reshape(-1, D)
+    p = pred_bins.movedim(-3, -1).reshape(-1, D)
+    return weight * _masked_bce(p, labels, (labels.amax(-1) > 0.0).float())
+
+
+def depth_pretrain_loss(pred_depth, gt_depth, grid: GridConfig, cfg: LossConfig
+                        ) -> Dict[str, torch.Tensor]:
+    """The stage-1 loss dict: SILog and the weighted bin CE."""
+    return {"loss_depth_zoe": silog_loss(pred_depth, gt_depth),
+            "loss_depth_ce": cfg.loss_depth_ce_weight * depth_bin_ce_loss(pred_depth, gt_depth,
+                                                                          grid)}

@@ -1,22 +1,28 @@
-"""The stage-2 train step on one device (counterpart of
-`veon_tpu/train/step.py` with mesh=None): forward with train-mode
-BatchNorm, the occupancy loss, the backward, AdamW with global-norm
-clipping and linear warmup over the trainable params only, and the EMA of
-params and BatchNorm running stats.
+"""The optimizer, the EMA and the stage-2 train step on one device
+(counterpart of `veon_tpu/train/step.py` with mesh=None): forward with
+train-mode BatchNorm, the occupancy loss, the backward, AdamW with
+global-norm clipping and linear warmup over the trainable params only,
+optional gradient accumulation, and the EMA of params and BatchNorm
+running stats.
 
 Params and running stats live in the model and are updated in place; the
-optimizer moments, the EMA copies and the counters live in `TrainState`.
-The optimizer is optax's chain written out by hand, rule for rule:
-clip_by_global_norm (t / norm * max_norm when norm >= max_norm; no
-epsilon, unlike torch's clip_grad_norm_), adamw (bias-corrected moments,
-decay added to the Adam direction) and a schedule read at the count
-BEFORE the step's increment.
+optimizer moments, the EMA copies and the counters live in `TrainState`
+beside the model. The optimizer is optax's chain written out by hand, rule
+for rule: clip_by_global_norm (t / norm * max_norm when norm >= max_norm;
+no epsilon, unlike torch's clip_grad_norm_), adamw (bias-corrected
+moments, decay added to the Adam direction) and a schedule read at the
+count BEFORE the step's increment; the frozen params (optax's
+set_to_zero partition) are not in it at all. accum_steps > 1 is
+optax.MultiSteps: each micro-step folds its gradient into a running mean,
+acc + (g - acc) / (n + 1), and every accum_steps-th applies one update of
+that mean, the inner count (clip, bias correction, warmup) advancing once
+per update.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +30,7 @@ from torch import nn
 
 from ..configs.base import VeonConfig
 from ..model.veon import VeonModel
+from ..nn.layers import BatchNorm
 from .losses import occupancy_loss
 
 # CLIP towers, side adapter and depth tower are frozen in stage 2; the
@@ -35,21 +42,34 @@ def stage2_trainable(path: Tuple[str, ...]) -> bool:
     return path[0] not in STAGE2_FROZEN_PREFIXES
 
 
+def trainable_mask(model: nn.Module, predicate: Callable[[Tuple[str, ...]], bool]
+                   ) -> Dict[str, bool]:
+    """{param name: predicate(its path)}, the path being the name's
+    components (the flax path with the scan index of an unstacked block)."""
+    return {n: bool(predicate(tuple(n.split(".")))) for n, _ in model.named_parameters()}
+
+
 def trainable_params(model: nn.Module) -> Dict[str, nn.Parameter]:
-    return {n: p for n, p in model.named_parameters() if stage2_trainable(tuple(n.split(".")))}
+    """The params `create_train_state` left trainable (requires_grad)."""
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
 @dataclasses.dataclass
 class AdamState:
-    count: int
+    count: int  # optimizer updates applied
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    mini_step: int = 0  # micro-steps folded into acc_grads since the last update
+    acc_grads: Optional[Dict[str, torch.Tensor]] = None  # accum_steps > 1: the running mean
 
 
 @dataclasses.dataclass(frozen=True)
 class AdamW:
-    """AdamW(lr 1e-4, wd 1e-2) after a global-norm clip at 5, with a linear
-    warmup from lr * warmup_ratio over warmup_iters steps."""
+    """The reference recipe's optimizer: AdamW(lr 1e-4, wd 1e-2) after a
+    global-norm clip at 5, with a linear warmup from lr * warmup_ratio over
+    warmup_iters steps, one update per `accum_steps` micro-steps. It updates
+    the params it is given: `create_train_state` decides which are
+    trainable."""
 
     lr: float = 1e-4
     weight_decay: float = 1e-2
@@ -59,10 +79,11 @@ class AdamW:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    accum_steps: int = 1
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamState:
-        return AdamState(0, {n: torch.zeros_like(p) for n, p in params.items()},
-                         {n: torch.zeros_like(p) for n, p in params.items()})
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
+        return AdamState(0, zeros(), zeros(), 0, zeros() if self.accum_steps > 1 else None)
 
     def learning_rate(self, count: int) -> torch.Tensor:
         """optax linear_schedule joined to a constant, in fp32."""
@@ -75,9 +96,18 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamState,
                params: Mapping[str, torch.Tensor]) -> AdamState:
-        """One step, applied to `params` in place; returns the new state."""
+        """One micro-step: with accumulation, fold `grads` into the running
+        mean and return unless this is the accum_steps-th; else one step on
+        the (mean) gradient, applied to `params` in place. The returned
+        state's mini_step is 0 exactly when params moved."""
         names = list(params)
         dev = params[names[0]].device
+        if self.accum_steps > 1:
+            n = torch.tensor(float(state.mini_step + 1), device=dev)
+            acc = {k: state.acc_grads[k] + (grads[k] - state.acc_grads[k]) / n for k in names}
+            if state.mini_step < self.accum_steps - 1:
+                return dataclasses.replace(state, mini_step=state.mini_step + 1, acc_grads=acc)
+            grads = acc
         norm = torch.sqrt(sum(torch.sum(grads[n] * grads[n]) for n in names))
         count = state.count + 1
         bc1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count
@@ -93,7 +123,9 @@ class AdamW:
             upd = upd + self.weight_decay * params[n]
             params[n].add_(step_size * upd)
             state.mu[n], state.nu[n] = mu, nu
-        return AdamState(count, state.mu, state.nu)
+        acc = None if state.acc_grads is None else {k: torch.zeros_like(v)
+                                                    for k, v in state.acc_grads.items()}
+        return AdamState(count, state.mu, state.nu, 0, acc)
 
 
 def ema_decay(updates: torch.Tensor, decay: float = 0.999) -> torch.Tensor:
@@ -110,33 +142,63 @@ def ema_update(ema: Dict[str, torch.Tensor], new: Mapping[str, torch.Tensor], d)
     torch._foreach_add_(es, torch._foreach_mul([new[n].detach() for n in names], 1.0 - d))
 
 
+def ema_step_fields(ema_updates: torch.Tensor, opt_state: AdamState):
+    """(effective decay, new update count) of one micro-step, gated on the
+    optimizer having applied an update (mini_step back at 0): the ramp
+    counts optimizer updates, not micro-steps, and a micro-step's decay is
+    1.0 (EMA untouched). As JAX: 1 - applied * (1 - ema_decay(count))."""
+    applied = 1.0 if opt_state.mini_step == 0 else 0.0
+    upd = ema_updates + applied
+    return 1.0 - applied * (1.0 - ema_decay(upd)), upd
+
+
 def batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The BatchNorm running stats (the flax batch_stats collection)."""
-    return dict(model.named_buffers())
+    return {f"{m}.{b}" if m else b: t for m, mod in model.named_modules()
+            if isinstance(mod, BatchNorm) for b, t in mod.named_buffers(recurse=False)}
 
 
 @dataclasses.dataclass
 class TrainState:
+    model: nn.Module  # the params and running stats, updated in place
     opt_state: AdamState
     ema_params: Dict[str, torch.Tensor]
     ema_batch_stats: Dict[str, torch.Tensor]
-    step: int
+    step: int  # micro-steps taken
     ema_updates: torch.Tensor  # fp32 scalar: optimizer updates counted by the EMA ramp
 
 
-def create_train_state(model: nn.Module, tx: AdamW, init_updates: int = 10560) -> TrainState:
-    """Freeze the params outside the stage-2 trainable set
-    (requires_grad=False) and start the optimizer, the EMA (copies of every
-    param and running stat) and the counters."""
-    train = trainable_params(model)
+def create_train_state(model: nn.Module, tx: AdamW, init_updates: int = 10560,
+                       predicate: Callable[[Tuple[str, ...]], bool] = stage2_trainable
+                       ) -> TrainState:
+    """Freeze the params outside the trainable set (`predicate`, stage 2's
+    by default; the optimizer sees only the others) with
+    requires_grad=False, and start the optimizer, the EMA (copies of every
+    param and running stat) and the counters: init_updates 10,560 for
+    stage 2, 0 for stage 1, as JAX."""
+    mask = trainable_mask(model, predicate)
     for n, p in model.named_parameters():
-        p.requires_grad_(n in train)
+        p.requires_grad_(mask[n])
     with torch.no_grad():
         ema_p = {n: p.detach().clone() for n, p in model.named_parameters()}
         ema_b = {n: b.detach().clone() for n, b in batch_stats(model).items()}
     dev = next(model.parameters()).device
-    return TrainState(tx.init(train), ema_p, ema_b, 0,
+    return TrainState(model, tx.init(trainable_params(model)), ema_p, ema_b, 0,
                       torch.tensor(float(init_updates), dtype=torch.float32, device=dev))
+
+
+def apply_gradients(tx: AdamW, state: TrainState, grads: Mapping[str, torch.Tensor],
+                    params: Mapping[str, torch.Tensor], with_stats: bool = True) -> TrainState:
+    """The optimizer micro-step and the gated EMA of the params (and, with
+    with_stats, the running stats): the shared end of both stages' steps."""
+    opt_state = tx.update(grads, state.opt_state, params)
+    d, ema_updates = ema_step_fields(state.ema_updates, opt_state)
+    if opt_state.mini_step == 0:  # decay 1.0 leaves the EMA as it is
+        ema_update(state.ema_params, dict(state.model.named_parameters()), d)
+        if with_stats:
+            ema_update(state.ema_batch_stats, batch_stats(state.model), d)
+    return dataclasses.replace(state, opt_state=opt_state, step=state.step + 1,
+                               ema_updates=ema_updates)
 
 
 def _no_mark(stage: str) -> None:
@@ -170,24 +232,22 @@ def make_train_step(model: VeonModel, tx: AdamW, cfg: VeonConfig, membership: np
     ov_weight, epoch. losses carry "loss_total". `mark(stage)` is called as
     each stage ends ("depth_tower", "forward_and_loss", "backward",
     "optimizer_and_ema"), e.g. to record a CUDA event there."""
-    params = trainable_params(model)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        params = trainable_params(model)
         losses = loss_fn(model, cfg, membership, batch, mark)
         total = sum(losses.values())
         mark("forward_and_loss")
-        grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+        # a num_temporal > 1 model on current-frame batches (the epochs
+        # before --temporal-start-epoch) leaves its temporal fusion unused:
+        # zero gradient, as JAX's
+        grads = dict(zip(params, torch.autograd.grad(total, list(params.values()),
+                                                     allow_unused=True, materialize_grads=True)))
         mark("backward")
-        opt_state = tx.update(grads, state.opt_state, params)
-        ema_updates = state.ema_updates + 1.0
-        d = ema_decay(ema_updates)
-        ema_update(state.ema_params, dict(model.named_parameters()), d)
-        ema_update(state.ema_batch_stats, batch_stats(model), d)
+        state = apply_gradients(tx, state, grads, params)
         mark("optimizer_and_ema")
         losses = {k: v.detach() for k, v in losses.items()}
         losses["loss_total"] = total.detach()
-        return TrainState(opt_state, state.ema_params, state.ema_batch_stats, state.step + 1,
-                          ema_updates), losses
+        return state, losses
 
     return step
-
