@@ -41,7 +41,8 @@ Phases; any failed check raises, so the exit code is non-zero:
      without the presorted lift (kernel #3 once per frame);
  10. the text tower: the tiny one card vs CPU, then VEON-B's at full
      width in fp32 building the nuscenes_brief x vild classifier (924
-     sequences of 77 tokens) on the card and on the CPU, with its time;
+     sequences of 77 tokens) on the card, with its time, held against the
+     CPU's rows of 11 prompts and the bg row;
  11. F=1 socket serving, a main path: a `TensorServer` with the handler
      of `cli/main.py` `build_serve_handler` at VEON-B fp32 answers 3
      requests with text tokens through `TensorClient` (kernel #1 once per
@@ -122,7 +123,28 @@ Phases; any failed check raises, so the exit code is non-zero:
      moved;
  29. the overfit drill `stage2_overfit` on the card and on the CPU, from
      CPU-seeded and card-seeded weights: the JAX test's loss margins
-     everywhere, the mIoU margin's verdict the CPU's.
+     everywhere, the mIoU margin's verdict the CPU's;
+ 30. temporal training at the tiny preset, card vs CPU: one F=2 step on
+     each route of the deformable attention (stencil, grid_sample) from
+     the same CPU-seeded weights, phase 26's tolerances, #3 twice;
+ 31. temporal training through the CLI, a main path: `train --preset
+     veon_b --num-temporal 2 --temporal-start-epoch 1 --epochs 2` fp32 on
+     4 frames of the shard with LiDAR sweeps (#3 once per epoch-0 step,
+     twice per epoch-1 step), one `--auto-resume` epoch, `test
+     --num-temporal 2 --ckpt` on its checkpoint; ms/step and peak per
+     epoch; `train_entry` bf16 at F=2 and F=4 (peaks, the temporal
+     fusion's autograd bytes on both routes) and one F=2 step with
+     lss_banded=False (#2 twice);
+ 32. data parallel on the card (run with phase 19's shard): (a) VEON-B
+     bf16 under a one-rank NCCL group against the plain step (bit-equal
+     where the plain step repeats bit for bit), then 12 warm steps of
+     each, alternating, medians with their spread; (b) two gloo ranks
+     sharing the card, tiny, one step, against the same two ranks on the
+     CPU; (c) a main path: `train --preset veon_b --dist-num-processes 2
+     --dist-coordinator` fp32 as two processes sharing the card over gloo
+     on 4 frames of the shard with LiDAR sweeps, 2 steps per rank: #3 once
+     per step per rank, rank 0 alone writes, the ranks end bit-equal. The
+     ranks are this script's own processes (`--dp-worker`).
 Phases 11-12 serve through the CLI's handler, which computes in the
 preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
@@ -130,6 +152,7 @@ The line before the last is the kernel table as JSON; the last line is
 Without a card it exits non-zero and prints no result.
 """
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -510,13 +533,14 @@ def pooled_backward_phase(cfg, pre, feat, dist):
 
 
 def far_depth(cfg, B=1):
-    """Metric depth U(1.5, 59.5) m at half input resolution, constant over
-    each 8x8 block (the lift's min-pool keeps it): a quarter of the pixels
-    lie past the ~45.8 m spray threshold."""
+    """Metric depth U(1.5, 59.5) m at half input resolution for each of the
+    cfg's frames, constant over each 8x8 block (the lift's min-pool keeps
+    it): a quarter of the pixels lie past the ~45.8 m spray threshold."""
     import numpy as np
 
     h, w = cfg.feat_hw
-    d = np.random.default_rng(17).uniform(1.5, 59.5, (B, 1, cfg.data.num_cams, h, w))
+    d = np.random.default_rng(17).uniform(1.5, 59.5, (B, cfg.num_temporal, cfg.data.num_cams,
+                                                      h, w))
     return torch.from_numpy(np.repeat(np.repeat(d.astype(np.float32), 8, 3), 8, 4))
 
 
@@ -1044,10 +1068,12 @@ def text_tower_phase():
     tiny one on four prompts (one cut at 77 tokens), unit-norm embeddings
     within 1e-5; then VEON-B's (512 wide, 8 heads, 12 layers) building the
     nuscenes_brief x vild classifier, 66 prompts x 14 templates = 924
-    sequences of 77 tokens, on each device, its unit rows (the classifier
-    over exp(logit_scale)) within 5e-5 (fp32, 12 layers summed in other
-    orders). Build times on the host clock: the card's first build (cold)
-    and a second one, and the CPU's."""
+    sequences of 77 tokens, on the card; the CPU builds the rows of the
+    first 11 prompts (154 sequences; a row depends on its prompt alone)
+    and the bg row, and the card's rows are held to those unit rows (the
+    classifier over exp(logit_scale)) within 5e-5 (fp32, 12 layers summed
+    in other orders). Build times on the host clock: the card's first
+    build (cold) and a second one, and the CPU's of its 11 rows."""
     from veon_tpu_torch.configs import presets
     from veon_tpu_torch.entry import build_text_tower
     from veon_tpu_torch.nn.text import (ClipTokenizer, build_vocabulary, get_templates,
@@ -1068,11 +1094,12 @@ def text_tower_phase():
     rng = np.random.default_rng(11)
     bg = rng.standard_normal((1, cfg.san.clip_embed_dim)).astype(np.float32)
     logit_scale = np.float32(np.log(1 / 0.07))
-    ms, ovw = {}, {}
-    for name, d in (("card_cold", "cuda"), ("card", "cuda"), ("cpu", "cpu")):
+    ms, ovw, cpu_prompts = {}, {}, prompts[:11]
+    for name, d, ps in (("card_cold", "cuda", prompts), ("card", "cuda", prompts),
+                        ("cpu", "cpu", cpu_prompts)):
         tower = build_text_tower(cfg, d, seed=0)
         t = time.perf_counter()
-        ovw[name] = text_classifier(cfg, prompts, tower, bg, logit_scale, require_bpe=False)
+        ovw[name] = text_classifier(cfg, ps, tower, bg, logit_scale, require_bpe=False)
         torch.cuda.synchronize()
         ms[name] = (time.perf_counter() - t) * 1e3
         del tower
@@ -1080,14 +1107,16 @@ def text_tower_phase():
     w = ovw["card"].cpu()
     if tuple(w.shape) != (len(prompts) + 1, cfg.san.clip_embed_dim) or not torch.isfinite(w).all():
         raise AssertionError(f"veon_b classifier {tuple(w.shape)} not finite or misshaped")
-    err = ((w - ovw["cpu"]).abs().max() / scale).item()
+    err = ((w[list(range(len(cpu_prompts))) + [-1]] - ovw["cpu"]).abs().max() / scale).item()
     if not err <= 5e-5:
         raise AssertionError(f"veon_b text classifier: card vs CPU {err:.3g} of a unit row > 5e-5")
     log(f"text tower: tiny card vs CPU max abs diff {tiny_err:.3g}; veon_b fp32 classifier "
         f"nuscenes_brief x {cfg.san.template_set} ({n_seq} sequences of 77 tokens): build "
-        f"{ms['card']:.3f} ms on the card ({ms['card_cold']:.3f} cold), {ms['cpu']:.3f} ms on "
-        f"the CPU; card vs CPU max abs diff {err:.3g} of a unit row")
+        f"{ms['card']:.3f} ms on the card ({ms['card_cold']:.3f} cold); the CPU's rows of "
+        f"{len(cpu_prompts)} prompts and bg in {ms['cpu']:.3f} ms, card vs CPU max abs diff "
+        f"{err:.3g} of a unit row")
     return dict(tiny_max_abs_diff=tiny_err, sequences=n_seq, build_ms=ms["card"],
+                cpu_prompts=len(cpu_prompts),
                 build_cold_ms=ms["card_cold"], cpu_build_ms=ms["cpu"], unit_row_max_abs_diff=err)
 
 
@@ -1893,8 +1922,10 @@ def data_plane_phase(root):
     (1e-6 where both fill a pixel; a point may change pixel only on a
     pixel boundary), its voxel ranks of a VEON-B frustum (6 x 88 x 32 x 88 points)
     equal to numpy's division; then `loader_bench.loader_fps` on the
-    16-frame 900x1600 JPEG shard under root with 2 and 4 workers, in thread
-    and in process mode (forked after the card's context exists)."""
+    16-frame 900x1600 JPEG shard under root with 2 and 4 workers in thread
+    mode, and over its first 8 frames in process mode (forked after the
+    card's context exists; at ~0.9 frames/s the mode's rate needs no more
+    frames, and the script's time does)."""
     from veon_tpu_torch.configs import presets
     from veon_tpu_torch.data import native, transforms as T
     from veon_tpu_torch.data.depth_gt import (lidar2img_matrices, points_to_depth_map,
@@ -1958,13 +1989,14 @@ def data_plane_phase(root):
         f"native {native_ms:.3f} ms, numpy {numpy_ms:.3f} ms, max diff {depth_err:.3g}, "
         f"{filled} pixels, {moved} moved ({edge} points on a boundary); ranks of {ranks.size} frustum points {ranks_ms:.3f} ms, equal, "
         f"{int(ok.sum())} in the grid")
-    pkl = os.path.join(root, "infos.pkl")
+    pkls = {"thread": os.path.join(root, "infos.pkl"),
+            "process": shard_paths(root, 8, "loader_process")}
     fps = {}
-    for mode in ("thread", "process"):
+    for mode, pkl in pkls.items():
         for workers in (2, 4):
             fps[f"{mode}_{workers}"] = loader_fps(pkl, root, workers, mode)
-    log(f"loader frames/s on the 16-frame 900x1600 shard (VEON-B eval samples, "
-        f"{os.cpu_count()} cores): {fps}")
+    log(f"loader frames/s on the 900x1600 shard (VEON-B eval samples, 16 frames in threads, "
+        f"8 in processes, {os.cpu_count()} cores): {fps}")
     return dict(native_jpeg=native.has_jpeg(), build_s=build_s, depth_native_ms=native_ms,
                 depth_numpy_ms=numpy_ms, depth_max_diff=depth_err, depth_pixels=filled,
                 depth_pixels_moved=moved, boundary_points=edge,
@@ -2628,14 +2660,17 @@ def _loss_lines(lines):
 class step_probe:
     """While active, wraps the step factory `name` of `cli/main.py`: each
     step of the CLI's run is synchronized and timed, its launches read
-    around it (the counters are not reset), its losses kept, and with
-    `watch(state) -> tensor` whether that tensor moved."""
+    around it (the counters are not reset), its losses and frame count
+    kept, with peaks=True its peak device memory (the peak counter reset
+    before each step), and with `watch(state) -> tensor` whether that
+    tensor moved."""
 
-    def __init__(self, name, watch=None):
+    def __init__(self, name, watch=None, peaks=False):
         from veon_tpu_torch.cli import main as cli_mod
 
-        self.mod, self.name, self.watch = cli_mod, name, watch
+        self.mod, self.name, self.watch, self.track_peaks = cli_mod, name, watch, peaks
         self.ms, self.launches, self.losses, self.moved = [], [], [], []
+        self.frames, self.peaks = [], []
 
     def __enter__(self):
         self.orig = getattr(self.mod, self.name)
@@ -2647,11 +2682,17 @@ class step_probe:
             def timed(state, batch):
                 before = probe.watch(state).clone() if probe.watch else None
                 torch.cuda.synchronize()
+                if probe.track_peaks:
+                    torch.cuda.reset_peak_memory_stats()
                 counts = {k: fn.launches for k, fn in fns.items()}
                 t = time.perf_counter()
                 state, losses = step(state, batch)
                 torch.cuda.synchronize()
                 probe.ms.append((time.perf_counter() - t) * 1e3)
+                if probe.track_peaks:
+                    probe.peaks.append(torch.cuda.max_memory_allocated())
+                imgs = batch.get("imgs", batch.get("depth_imgs"))
+                probe.frames.append(int(imgs.shape[1]) if imgs is not None else 1)
                 probe.launches.append({k: fn.launches - counts[k] for k, fn in fns.items()})
                 probe.losses.append({k: float(v) for k, v in losses.items()})
                 if before is not None:
@@ -2942,6 +2983,524 @@ def overfit_phase():
     return out
 
 
+def _compare_runs(want, got, what):
+    """Phase 26's tolerances, card (got) against CPU (want), each a dict of
+    losses (floats) and tensors by kind: losses within 1e-4 (relative above
+    1), the gradient (Adam's first moment) within 1e-3 of its largest
+    entry, params and EMA within 1e-5 and running stats within 1e-4
+    (relative above 1). Returns the differences."""
+    diffs = {"loss": max(abs(got["losses"][k] - v) / max(abs(v), 1.0)
+                         for k, v in want["losses"].items())}
+    scale = max(v.abs().max().item() for v in want["mu"].values())
+    diffs["grad"] = max((got["mu"][n].cpu() - v).abs().max().item()
+                        for n, v in want["mu"].items()) / scale
+    for kind in ("params", "ema", "buffers"):
+        diffs[kind] = max(((got[kind][n].cpu().float() - v.float()).abs()
+                           / v.float().abs().clamp_min(1.0)).max().item()
+                          for n, v in want[kind].items())
+    tol = {"loss": 1e-4, "grad": 1e-3, "params": 1e-5, "ema": 1e-5, "buffers": 1e-4}
+    bad = {k: v for k, v in diffs.items() if not v <= tol[k]}
+    if bad:
+        raise AssertionError(f"{what}: card vs CPU outside phase 26's tolerance: {bad}")
+    return diffs
+
+
+def _run_state(trainer, losses):
+    """A step's losses and the trained state: trainable params, running
+    stats, Adam's first moment and the EMA of the trainable params."""
+    s, model = trainer.state, trainer.model
+    return dict(losses={k: float(v) for k, v in losses.items()},
+                params={n: p.detach().clone() for n, p in model.named_parameters()
+                        if p.requires_grad},
+                buffers={n: b.clone() for n, b in model.named_buffers()},
+                mu={n: t.clone() for n, t in s.opt_state.mu.items()},
+                ema={n: s.ema_params[n].clone() for n in s.opt_state.mu})
+
+
+def tiny_train_cfg(num_temporal=1):
+    """The tiny preset with 0.5 m depth bins: the banded lift sprays."""
+    from veon_tpu_torch.configs import presets
+
+    cfg = presets.veon_tiny_test(num_temporal=num_temporal)
+    return dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid, depth=(1.0, 45.0, 0.5)))
+
+
+def temporal_train_parity_phase():
+    """Phase 30, temporal training at the tiny preset, card vs CPU: one F=2
+    step on each route of the deformable attention (the 3x3x3 stencil, the
+    model's, and the grid_sample gather) from the same CPU-seeded weights,
+    far depths on both frames (the spray runs): phase 26's tolerances
+    (`_compare_runs`); #3 twice in the card's step, once per frame."""
+    from veon_tpu_torch.entry import train_entry
+    from veon_tpu_torch.train import step as tstep
+
+    cfg = tiny_train_cfg(2)
+    out = {}
+    for route in ("stencil", "gather"):
+        built = {dev: train_entry(cfg, device=dev, seed=3) for dev in ("cpu", "cuda")}
+        card = built["cuda"][0]
+        card.model.load_state_dict(built["cpu"][0].model.state_dict())
+        card.state = tstep.create_train_state(card.model, tstep.AdamW())
+        runs = {}
+        for dev, (trainer, batch) in built.items():
+            trainer.model.alignnet.temporal_fusion.t_deform.use_stencil = route == "stencil"
+            del batch["depth_imgs"]
+            batch["depth"] = far_depth(cfg).to(dev)
+            kernels = reset_launches()
+            losses = trainer(batch)
+            torch.cuda.synchronize()
+            runs[dev] = _run_state(trainer, losses)
+            runs[dev]["launches"] = {k: fn.launches for k, fn in kernels.items()}
+        expect_launches(runs["cuda"]["launches"], {"bev_pool_pooled": 0, "bev_pool_sorted": 0,
+                                                   "bev_pool_sorted2": 2, "ln_dense": 0},
+                        f"tiny F=2 train step ({route})")
+        diffs = _compare_runs(runs["cpu"], runs["cuda"], f"tiny F=2 train step ({route})")
+        out[route] = dict(diffs, losses=runs["cpu"]["losses"])
+        log(f"temporal train step tiny F=2 fp32 ({route}) card vs CPU: losses "
+            f"{ {k: round(v, 6) for k, v in runs['cpu']['losses'].items()} }, differences "
+            f"{ {k: float(f'{v:.3g}') for k, v in diffs.items()} }; #3 twice")
+        del built, runs
+    return out
+
+
+def _fusion_memory(model):
+    """Hooks on the temporal fusion and its deformable attention recording
+    the device bytes each train-mode call leaves allocated (its output and
+    what autograd saved for the backward). Returns ({name: [bytes]},
+    remove)."""
+    tf = model.alignnet.temporal_fusion
+    seen, handles = {"temporal_fusion": [], "t_deform": []}, []
+    for name, mod in (("temporal_fusion", tf), ("t_deform", tf.t_deform)):
+        start = []
+        handles.append(mod.register_forward_pre_hook(
+            lambda *_a, start=start: start.append(torch.cuda.memory_allocated())))
+        handles.append(mod.register_forward_hook(
+            lambda *_a, start=start, name=name: seen[name].append(
+                torch.cuda.memory_allocated() - start.pop())))
+    return seen, lambda: [h.remove() for h in handles]
+
+
+def temporal_cli_phase(root, frames=4):
+    """Phase 31, temporal training through the CLI, a main path: `train
+    --preset veon_b --num-temporal 2 --temporal-start-epoch 1 --epochs 2`
+    fp32 on the first `frames` frames of the shard with LiDAR sweeps
+    (`train_shard`): epoch 0 on the current frame (#3 once per step),
+    epoch 1 on two frames (#3 twice per step), then `--epochs 3
+    --auto-resume` (epoch 3 alone, two frames) and `test --num-temporal 2
+    --ckpt` on its checkpoint (#3 twice per frame). Per epoch: ms/step and
+    the steps' peak device memory above the phase's start. Then
+    `train_entry` in bf16 at F=2 and F=4, 3 steps each (#3 F times per
+    step), with the peak above the start of each (its model included), the device
+    bytes the temporal fusion's train-mode forward leaves for its backward
+    (stencil route, and the gather route on one more step), and one F=2
+    step with lss_banded=False (#2 twice)."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import train_entry
+
+    pkl = train_shard(root, frames)
+    work = tempfile.mkdtemp(prefix="veon_ttrain", dir=root)
+    base = ["--preset", "veon_b", "--num-temporal", "2", "--temporal-start-epoch", "1",
+            "--data-root", root, "--ann", pkl, "--workers", "2", "--work-dir", work]
+    res, launches_sorted2 = {}, 0
+    start = phase_base()
+    with step_probe("make_train_step", peaks=True) as probe:
+        first, _o1, s1, l1 = run_cli(["train", *base, "--epochs", "2"])
+        second, out2, s2, l2 = run_cli(["train", *base, "--epochs", "3", "--auto-resume"])
+    if first != {"start_epoch": 0, "step": 2 * frames} or \
+            second != {"start_epoch": 2, "step": 3 * frames} or "(epoch 2)" not in out2 or \
+            probe.frames != [1] * frames + [2] * (2 * frames):
+        raise AssertionError(f"temporal train / --auto-resume: {first}, {second}, frames "
+                             f"{probe.frames}")
+    for i, (got, f) in enumerate(zip(probe.launches, probe.frames)):
+        expect_launches(got, {k: f if k == "bev_pool_sorted2" else 0 for k in got},
+                        f"temporal train step {i + 1} (F={f})")
+    expect_launches(l1, {k: 3 * frames if k == "bev_pool_sorted2" else 0 for k in l1},
+                    "train --num-temporal 2 --epochs 2")
+    expect_launches(l2, {k: 2 * frames if k == "bev_pool_sorted2" else 0 for k in l2},
+                    "train --num-temporal 2 --auto-resume")
+    if not all(math.isfinite(v) for d in probe.losses for v in d.values()):
+        raise AssertionError(f"temporal train losses {probe.losses}")
+    epochs = {}
+    for e in range(3):
+        ms = probe.ms[e * frames:(e + 1) * frames]
+        epochs[e] = dict(frames=probe.frames[e * frames], step_ms=ms,
+                         warm_ms=statistics.median(ms[1:]), peak_bytes=max(
+                             probe.peaks[e * frames:(e + 1) * frames]) - start)
+    test_pkl = shard_paths(root, frames, "ttrain_test")
+    r, _o, ts, lt = run_cli(["test", "--preset", "veon_b", "--num-temporal", "2", "--data-root",
+                             root, "--ann", test_pkl, "--workers", "2", "--ckpt",
+                             os.path.join(work, f"step_{3 * frames}")])
+    expect_launches(lt, {k: 2 * frames if k == "bev_pool_sorted2" else 0 for k in lt},
+                    "test --num-temporal 2 --ckpt")
+    if not np.isfinite(r["mIoU"]):
+        raise AssertionError(f"test --num-temporal 2 --ckpt mIoU {r['mIoU']}")
+    shutil.rmtree(work, ignore_errors=True)
+    launches_sorted2 += sum(d["bev_pool_sorted2"] for d in probe.launches) + lt["bev_pool_sorted2"]
+    res["cli"] = dict(epochs=epochs, losses=probe.losses, cli_s=[s1, s2], test_miou=r["mIoU"],
+                      test_s=ts, launches=probe.launches, test_launches=lt)
+    log(f"train --preset veon_b --num-temporal 2 --temporal-start-epoch 1 fp32, {frames} frames: "
+        + "; ".join(f"epoch {e} (F={d['frames']}) step ms {[round(t, 3) for t in d['step_ms']]} "
+                    f"warm {d['warm_ms']:.3f}, peak above the phase's start "
+                    f"{d['peak_bytes'] / 2**30:.3f} GiB"
+                    for e, d in epochs.items())
+        + f"; epoch 3 by --auto-resume from NEXT_EPOCH 2; #3 once per F=1 step, twice per F=2 "
+        f"step; test --num-temporal 2 --ckpt mIoU {r['mIoU']:.4f} in {ts:.1f} s (#3 twice per "
+        f"frame); CLI s {[round(s1, 1), round(s2, 1)]}")
+    res["bf16"] = {}
+    for F in (2, 4):
+        start = phase_base()
+        trainer, batch = train_entry(presets.veon_b(num_temporal=F, compute_dtype="bfloat16"))
+        torch.cuda.synchronize()
+        seen, remove = _fusion_memory(trainer.model)
+        torch.cuda.reset_peak_memory_stats()
+        kernels = reset_launches()
+        times, losses = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            lo = trainer(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append({k: float(v) for k, v in lo.items()})
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() - start
+        expect_launches(launches, {k: 3 * F if k == "bev_pool_sorted2" else 0 for k in launches},
+                        f"train_entry bf16 F={F}")
+        launches_sorted2 += launches["bev_pool_sorted2"]
+        stencil = {k: v[-1] for k, v in seen.items()}
+        trainer.model.alignnet.temporal_fusion.t_deform.use_stencil = False
+        trainer(batch)
+        torch.cuda.synchronize()
+        gather = {k: v[-1] for k, v in seen.items()}
+        remove()
+        if not all(math.isfinite(v) for d in losses for v in d.values()):
+            raise AssertionError(f"train_entry bf16 F={F} losses {losses}")
+        res["bf16"][F] = dict(step_ms=times, warm_ms=statistics.median(times[1:]),
+                              peak_bytes=peak, launches=launches, losses=losses,
+                              fusion_saved_bytes=dict(stencil=stencil, gather=gather))
+        log(f"train_entry veon_b bf16 F={F}: step ms {[round(t, 3) for t in times]}, peak above "
+            f"the start (model included) {peak / 2**30:.3f} GiB, #3 {launches['bev_pool_sorted2']} in 3 steps; the "
+            f"temporal fusion's train-mode forward leaves (output + saved for backward) "
+            + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in stencil.items())
+            + " on the stencil route, "
+            + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in gather.items())
+            + " on the gather route (the last t_deform call of each)")
+        del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, batch = train_entry(dataclasses.replace(
+        presets.veon_b(num_temporal=2, compute_dtype="bfloat16"), lss_banded=False))
+    kernels = reset_launches()
+    t = time.perf_counter()
+    lo = trainer(batch)
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t) * 1e3
+    full = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(full, {k: 2 if k == "bev_pool_sorted" else 0 for k in full},
+                    "train_entry bf16 F=2 lss_banded=False")
+    res["full_lift_f2"] = dict(step_ms=full_ms, launches=full,
+                               losses={k: float(v) for k, v in lo.items()})
+    log(f"train_entry veon_b bf16 F=2 lss_banded=False: one step {full_ms:.3f} ms (cold), #2 "
+        "twice")
+    del trainer, batch
+    res["launches_sorted2"], res["launches_sorted"] = launches_sorted2, full["bev_pool_sorted"]
+    return res
+
+
+def _spawn_ranks(argvs, work, timeout=300):
+    """This script's `--dp-worker` processes, one per argv, all started at
+    once with their output in `work`; waits for all, and kills every one
+    that is left as soon as one fails or the timeout passes. Returns the
+    outputs."""
+    logs = [open(os.path.join(work, f"rank{i}.log"), "w+") for i in range(len(argvs))]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                               *map(str, a)], stdout=f, stderr=subprocess.STDOUT)
+             for a, f in zip(argvs, logs)]
+    deadline, failed = time.time() + timeout, None
+    while any(p.poll() is None for p in procs):
+        failed = next((i for i, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+        if failed is not None or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"dp worker {bad[0]} exited {procs[bad[0]].returncode} (failed "
+                             f"first: {failed}):\n{outs[bad[0]][-3000:]}")
+    return outs
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_step_worker(rank, port, device, out):
+    """Phase 32(b)'s rank: the tiny step on row `rank` of a B=2 batch in a
+    two-rank gloo group on `device` (both ranks of the card on card 0),
+    from CPU-seeded weights; saves its state and launches to `out`."""
+    from veon_tpu_torch.cli.shapes import example_batch
+    from veon_tpu_torch.entry import train_entry
+    from veon_tpu_torch.train import distributed as D
+    from veon_tpu_torch.train import step as tstep
+
+    rank = int(rank)
+    cfg = tiny_train_cfg()
+    D.init_group(f"localhost:{port}", 2, rank, device=device, backend="gloo")
+    trainer, batch = train_entry(cfg, device="cpu", seed=3)
+    if device == "cuda":
+        cpu_sd = trainer.model.state_dict()
+        trainer, batch = train_entry(cfg, device="cuda", seed=3)
+        trainer.model.load_state_dict(cpu_sd)
+        trainer.state = tstep.create_train_state(trainer.model, tstep.AdamW())
+    D.broadcast_state(trainer.model)
+    imgs, _d, metas = example_batch(cfg, B=2, device=device)
+    nx, ny, nz = cfg.grid.size
+    labels = np.random.default_rng(23).integers(0, 18, (2, nx, ny, nz)).astype(np.int32)
+    rows = slice(rank, rank + 1)
+    del batch["depth_imgs"]
+    batch.update(imgs=imgs[rows], metas={k: v[rows] for k, v in metas.items()},
+                 depth=far_depth(cfg, B=2)[rows].to(device),
+                 voxel_semantics=torch.from_numpy(labels[rows]).to(device))
+    kernels = reset_launches()
+    run = _run_state(trainer, trainer(batch))
+    run["launches"] = {k: fn.launches for k, fn in kernels.items()}
+    D.shutdown()
+    torch.save({k: ({n: t.cpu() for n, t in v.items()} if k in ("params", "buffers", "mu", "ema")
+                    else v) for k, v in run.items()}, out)
+
+
+def _dp_cli_worker(rank, port, root, pkl, work, out):
+    """Phase 32(c)'s rank: `train --preset veon_b --dist-num-processes 2`
+    at full width in fp32 on the card, the two ranks sharing it over gloo
+    (NCCL takes one rank per card): initialize is given backend="gloo"
+    here, the CLI has no option for it. Saves the result, the checkpoints
+    this rank wrote, each step's launches, ms, peak and losses
+    (`step_probe`), and a SHA-256 of every tensor of its trained model, to
+    `out`."""
+    import functools
+    import hashlib
+
+    from veon_tpu_torch.cli import main as cli_mod
+    from veon_tpu_torch.train import distributed as D
+    from veon_tpu_torch.train import loop
+
+    cli_mod.dist_init = functools.partial(D.initialize, backend="gloo")
+    saves, models = [], []
+    orig_save, orig_step = loop.save_checkpoint, cli_mod.make_train_step
+    loop.save_checkpoint = lambda d, step, *a, **k: (saves.append(step), orig_save(d, step, *a,
+                                                                                   **k))[1]
+    cli_mod.make_train_step = lambda model, *a, **k: (models.append(model),
+                                                      orig_step(model, *a, **k))[1]
+    with step_probe("make_train_step", peaks=True) as probe:
+        res = cli_mod.main(["train", "--preset", "veon_b", "--data-root", root, "--ann", pkl,
+                            "--workers", "1", "--epochs", "1", "--work-dir", work,
+                            "--dist-coordinator", f"localhost:{port}", "--dist-num-processes",
+                            "2", "--dist-process-id", str(rank)])
+    torch.cuda.synchronize()
+    digest = {n: hashlib.sha256(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                                .numpy()).hexdigest()
+              for n, t in models[-1].state_dict().items()}
+    torch.save(dict(result=res, saves=saves, launches=probe.launches, step_ms=probe.ms,
+                    peaks=probe.peaks, losses=probe.losses, frames=probe.frames,
+                    digest=digest), out)
+
+
+def _spread(ms):
+    """Median, quartiles, min and max of a list of times."""
+    q = statistics.quantiles(ms, n=4)
+    return dict(median=statistics.median(ms), q1=q[0], q3=q[2], min=min(ms), max=max(ms))
+
+
+def data_parallel_phase(root, rounds=12):
+    """Phase 32, data parallel on the card. (a) VEON-B bf16 at full width
+    through `train_entry`: the plain step twice from the same seeded weights
+    (is the card's step bit-reproducible?), then the step under a one-rank
+    NCCL group (`distributed.init_group`; `initialize` opens none at world
+    size 1, as JAX's): synced BatchNorm, gradients and losses all-reduced.
+    Its first step bit-equal to the plain one where the plain step repeats
+    bit for bit (else within the plain step's own run-to-run difference).
+    Then, on that trainer with the group open, 2 warm steps and `rounds`
+    steps each of the plain step (the collectives switched off:
+    `collectives.data_parallel` patched to False) and the synced one,
+    alternating plain, synced, synced, plain: medians with their quartiles
+    and the paired differences; #3 once per step. (b) Two ranks sharing
+    the card over gloo (gloo all-reduces CUDA tensors through the host),
+    tiny preset, one step on one row each of a B=2 batch, against the same
+    two ranks on the CPU: the ranks bit-equal to each other, card against
+    CPU within phase 26's tolerance, #3 once per rank. (c) `train --preset
+    veon_b --dist-num-processes 2 --dist-coordinator` fp32 as two processes
+    sharing the card (over gloo, see `_dp_cli_worker`) on the first 4
+    frames of the shard with LiDAR sweeps: 2 steps per rank, #3 once per
+    step on each rank, the averaged losses equal on both ranks, rank 0
+    alone prints the param table and writes step_2 and the log, both ranks
+    end with bit-equal models (SHA-256 of every tensor)."""
+    from unittest import mock
+
+    from veon_tpu_torch import collectives
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import train_entry
+    from veon_tpu_torch.train import distributed as D
+
+    cfg = presets.veon_b(compute_dtype="bfloat16")
+    out, launches_sorted2 = {}, 0
+
+    def first_step(synced):
+        """A trainer from seed 0, its batch and its first step's state."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, batch = train_entry(cfg, seed=0)
+        if synced:
+            D.broadcast_state(trainer.model)
+        return trainer, batch, _run_state(trainer, trainer(batch))
+
+    def differ(a, b):
+        """(bit-equal, max difference relative above 1) of two first steps."""
+        pairs = [(a[k], b[k]) for k in ("params", "buffers", "mu", "ema")]
+        exact = a["losses"] == b["losses"] and all(torch.equal(x[n], y[n]) for x, y in pairs
+                                                   for n in x)
+        worst = max([abs(a["losses"][k] - b["losses"][k]) / max(abs(a["losses"][k]), 1.0)
+                     for k in a["losses"]] + [((y[n].float() - x[n].float()).abs()
+                                               / x[n].float().abs().clamp_min(1.0)).max().item()
+                                              for x, y in pairs for n in x])
+        return exact, worst
+
+    kernels = reset_launches()
+    _t, _b, plain = first_step(False)
+    del _t, _b
+    _t, _b, again = first_step(False)
+    del _t, _b
+    order = ["plain", "synced", "synced", "plain"] * (rounds // 2)
+    times = {"plain": [], "synced": []}
+    D.init_group(f"localhost:{_free_port()}", 1, 0)
+    try:
+        trainer, batch, synced = first_step(True)
+        backend = torch.distributed.get_backend()
+        for _ in range(2):
+            trainer(batch)
+        for kind in order:
+            with mock.patch.object(collectives, "data_parallel", lambda: False) \
+                    if kind == "plain" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                trainer(batch)
+                torch.cuda.synchronize()
+                times[kind].append((time.perf_counter() - t) * 1e3)
+    finally:
+        D.shutdown()
+    del trainer, batch
+    steps = 3 + 2 + len(order)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(launches, {k: steps if k == "bev_pool_sorted2" else 0 for k in launches},
+                    "veon_b bf16 plain and synced steps")
+    launches_sorted2 += launches["bev_pool_sorted2"]
+    repro, spread = differ(plain, again)
+    exact, worst = differ(plain, synced)
+    if not (exact or (not repro and worst <= 4 * spread)):
+        raise AssertionError(f"world size 1 ({backend}): synced step off by {worst:.3g} from the "
+                             f"plain one (plain run to run {spread:.3g}, bit-equal {repro})")
+    paired = [times["synced"][i] - times["plain"][i] for i in range(rounds)]
+    out["ws1"] = dict(backend=backend, bit_equal=exact, max_diff=worst, plain_bit_repro=repro,
+                      plain_run_to_run=spread, order=order, plain_ms=times["plain"],
+                      synced_ms=times["synced"], plain=_spread(times["plain"]),
+                      synced=_spread(times["synced"]), paired_diff=_spread(paired),
+                      losses=plain["losses"])
+    w = out["ws1"]
+    log(f"world size 1 over {backend}, veon_b bf16 full width: synced first step bit-equal "
+        f"{exact} (max diff {worst:.3g}; the plain step run to run: bit-equal {repro}, "
+        f"{spread:.3g}); {rounds} warm steps each, alternating plain/synced/synced/plain: "
+        + "; ".join(f"{k} median {w[k]['median']:.3f} ms (quartiles {w[k]['q1']:.3f}-"
+                    f"{w[k]['q3']:.3f}, range {w[k]['min']:.3f}-{w[k]['max']:.3f})"
+                    for k in ("plain", "synced"))
+        + f"; synced - plain per pair median {w['paired_diff']['median']:+.3f} ms (quartiles "
+        f"{w['paired_diff']['q1']:+.3f} to {w['paired_diff']['q3']:+.3f}); plain ms "
+        f"{[round(t, 3) for t in times['plain']]}, synced {[round(t, 3) for t in times['synced']]}")
+    del plain, again, synced
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="veon_dp")
+    try:
+        ranks = {}
+        for device in ("cuda", "cpu"):
+            port = _free_port()
+            _spawn_ranks([("step", r, port, device, os.path.join(work, f"{device}{r}.pt"))
+                          for r in range(2)], work)
+            ranks[device] = [torch.load(os.path.join(work, f"{device}{r}.pt")) for r in range(2)]
+        card, cpu = ranks["cuda"], ranks["cpu"]
+        for k in ("params", "buffers", "mu", "ema"):
+            if not all(torch.equal(card[0][k][n], card[1][k][n]) for n in card[0][k]):
+                raise AssertionError(f"two ranks on the card: {k} differ between the ranks")
+        if card[0]["losses"] != card[1]["losses"]:
+            raise AssertionError(f"two ranks on the card: losses {card[0]['losses']} vs "
+                                 f"{card[1]['losses']}")
+        for r in range(2):
+            expect_launches(card[r]["launches"], {k: 1 if k == "bev_pool_sorted2" else 0
+                                                  for k in card[r]["launches"]},
+                            f"two ranks on the card: rank {r}")
+        diffs = [_compare_runs(cpu[r], card[r], f"two gloo ranks, rank {r}") for r in range(2)]
+        out["two_ranks_gloo"] = dict(diffs=diffs, losses=cpu[0]["losses"])
+        log(f"two gloo ranks sharing the card, tiny fp32, one step each: ranks bit-equal, card "
+            f"vs two CPU ranks {[{k: float(f'{v:.3g}') for k, v in d.items()} for d in diffs]}, "
+            f"averaged losses { {k: round(v, 6) for k, v in cpu[0]['losses'].items()} }; #3 once "
+            "per rank")
+
+        pkl = train_shard(root, 4)
+        tw = tempfile.mkdtemp(prefix="veon_dptrain", dir=root)
+        port = _free_port()
+        t = time.perf_counter()
+        logs = _spawn_ranks([("cli", r, port, root, pkl, tw, os.path.join(work, f"cli{r}.pt"))
+                             for r in range(2)], work, timeout=600)
+        cli_s = time.perf_counter() - t
+        recs = [torch.load(os.path.join(work, f"cli{r}.pt")) for r in range(2)]
+        for r, rec in enumerate(recs):
+            if rec["result"] != {"start_epoch": 0, "step": 2} or rec["frames"] != [1, 1] or \
+                    rec["saves"] != ([2] if r == 0 else []) or ("TOTAL" in logs[r]) != (r == 0):
+                raise AssertionError(f"train --dist rank {r}: {rec['result']}, frames "
+                                     f"{rec['frames']}, saves {rec['saves']}")
+            for i, got in enumerate(rec["launches"]):
+                expect_launches(got, {k: 1 if k == "bev_pool_sorted2" else 0 for k in got},
+                                f"train --dist rank {r} step {i + 1}")
+            launches_sorted2 += sum(d["bev_pool_sorted2"] for d in rec["launches"])
+            if not all(math.isfinite(v) for d in rec["losses"] for v in d.values()):
+                raise AssertionError(f"train --dist rank {r} losses {rec['losses']}")
+        if recs[0]["losses"] != recs[1]["losses"]:
+            raise AssertionError(f"train --dist: the averaged losses differ between the ranks: "
+                                 f"{recs[0]['losses']} vs {recs[1]['losses']}")
+        off = sorted(n for n in recs[0]["digest"] if recs[0]["digest"][n] != recs[1]["digest"][n])
+        if off or recs[0]["digest"].keys() != recs[1]["digest"].keys():
+            raise AssertionError(f"train --dist: the ranks' models differ in {off[:5]}")
+        if set(os.listdir(tw)) - {"tb"} != {"step_2", "train.log.jsonl"}:
+            raise AssertionError(f"train --dist work dir: {sorted(os.listdir(tw))}")
+        shutil.rmtree(tw, ignore_errors=True)
+        out["cli"] = dict(results=[r["result"] for r in recs], saves=[r["saves"] for r in recs],
+                          launches=[r["launches"] for r in recs],
+                          step_ms=[r["step_ms"] for r in recs], peaks=[r["peaks"] for r in recs],
+                          losses=recs[0]["losses"], tensors=len(recs[0]["digest"]),
+                          seconds=cli_s)
+        log(f"train --preset veon_b --dist-num-processes 2 fp32 (4 frames, two ranks sharing the "
+            f"card over gloo): 2 steps per rank, #3 once per step per rank, averaged losses "
+            f"equal on both ranks, rank 0 alone wrote step_2 and the log, "
+            f"{len(recs[0]['digest'])} model tensors bit-equal across the ranks; step ms "
+            + ", ".join(f"rank {r} {[round(t, 3) for t in rec['step_ms']]} (peak "
+                        f"{max(rec['peaks']) / 2**30:.3f} GiB)" for r, rec in enumerate(recs))
+            + f"; {cli_s:.1f} s for both processes")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches_sorted2"] = launches_sorted2
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2965,6 +3524,13 @@ def main():
     # fp32 stays fp32 on the card: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, kept per group of phases."""
+        now = time.perf_counter()
+        laps[name], last[0] = round(now - last[0], 1), now
+
     cfg = presets.veon_b(compute_dtype="bfloat16")
     kern, (metas, pre, feat, metric, dist) = kernel_phase(cfg)
     sorted_res = sorted_kernel_phase(cfg, metas, feat, metric)
@@ -2972,27 +3538,36 @@ def main():
     del metas, pre, feat, metric, dist
     torch.cuda.empty_cache()
     ln = ln_dense_phase()
+    lap("1-2 kernels")
     train_small = train_parity_phase()
     train = train_phase(cfg)
+    lap("3-4 train step")
     small = small_parity_phase()
     server, inputs, main_res = main_path(cfg)
     where = breakdown(server, *inputs)
+    lap("5-7 serving")
     del server, inputs
     torch.cuda.empty_cache()
     temporal_small = temporal_parity_phase()
     session, reqs, temporal = temporal_main_path()
     temporal_where = temporal_breakdown(session, reqs)
     batched = batched_temporal_phase(session, reqs)
+    lap("8-9 streaming")
     del session, reqs
     torch.cuda.empty_cache()
     text = text_tower_phase()
+    lap("10 text tower")
     grid, serve_f1 = frame_server_phase()
     serve_t2 = streaming_server_phase()
+    lap("11-12 sockets")
     metrics = metrics_phase(grid)
     weights_tiny = weights_tiny_phase()
+    lap("13-14 metrics, tiny weights")
     variables, weights = weights_main_path(main_res["median_ms"])
     new_presets = presets_phase(main_res["median_ms"])
+    lap("15-16 weights, presets")
     precision = precision_phase(variables)
+    lap("17 precision")
     del variables
     gc.collect()
     torch.cuda.empty_cache()
@@ -3005,6 +3580,7 @@ def main():
         raise AssertionError(f"zoe drive depth input {zoe_t2['depth_input']}")
     variables, zoe_weights = zoe_weights_phase()
     zoe_precision = precision_phase(variables, "veon_b_zoe")
+    lap("20-24 zoe")
     del variables
     gc.collect()
     torch.cuda.empty_cache()
@@ -3016,22 +3592,37 @@ def main():
         make_frames(shard, 16)
         log(f"shard: 16 frames x 6 cams of 900x1600 JPEGs in {time.perf_counter() - t:.1f} s")
         data_plane = data_plane_phase(shard)
+        lap("18 data plane")
         eval_tiny = eval_tiny_parity_phase(shard)
         eval_loop = eval_loop_phase(shard)
+        lap("19 eval loop")
         zoe_eval = zoe_eval_phase(shard)
+        lap("25 zoe eval")
         stages = train_stages_parity_phase(shard)
+        lap("26 training parity")
         train_cli = train_cli_phase(shard)
+        lap("27 train CLI")
         pretrain = {"veon_b": pretrain_cli_phase(shard, "veon_b", 4),
                     "veon_b_zoe": pretrain_cli_phase(shard, "veon_b_zoe", 2)}
+        lap("28 pretrain CLI")
+        overfit = overfit_phase()
+        lap("29 overfit")
+        temporal_train_small = temporal_train_parity_phase()
+        lap("30 temporal parity")
+        temporal_cli = temporal_cli_phase(shard)
+        lap("31 temporal CLI")
+        data_parallel = data_parallel_phase(shard)
+        lap("32 data parallel")
     finally:
         shutil.rmtree(shard, ignore_errors=True)
-    overfit = overfit_phase()
 
     # launches on the main paths: the F=1 frames, the requests served from
     # converted weights and the new presets' frames, the zoe frames, calls
     # and served requests (#1); the train steps (#2, #3), the weights
     # drills' forwards and the eval loops' frames, zoe's included, the CLI
-    # train steps and the frames of `test` on their checkpoints (#3)
+    # train steps and the frames of `test` on their checkpoints, the
+    # temporal train steps (F per step), the data-parallel steps (#3); the
+    # F=2 full-frustum temporal step (#2)
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
                                 + sum(weights["launches_per_request"])
                                 + new_presets["launches"]["bev_pool_pooled"]
@@ -3039,14 +3630,17 @@ def main():
                                 + zoe_t2["launches"]["bev_pool_pooled"]
                                 + zoe_weights["launches_pooled"]),
             "bev_pool_sorted": (sorted_res["full_bf16"],
-                                train["full"]["launches"]["bev_pool_sorted"]),
+                                train["full"]["launches"]["bev_pool_sorted"]
+                                + temporal_cli["launches_sorted"]),
             "bev_pool_sorted2": (sorted_res["band_spray_bf16"],
                                  train["banded"]["launches"]["bev_pool_sorted2"]
                                  + weights["drill_launches"]["bev_pool_sorted2"]
                                  + eval_loop["launches_sorted2"]
                                  + zoe_weights["drill_launches"]["bev_pool_sorted2"]
                                  + zoe_eval["launches"]["bev_pool_sorted2"]
-                                 + train_cli["launches_sorted2"]),
+                                 + train_cli["launches_sorted2"]
+                                 + temporal_cli["launches_sorted2"]
+                                 + data_parallel["launches_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
                          + temporal["launches"]["ln_dense"])}
@@ -3071,12 +3665,15 @@ def main():
                    "zoe_precision": zoe_precision, "zoe_eval": zoe_eval,
                    "train_stages_parity": stages, "train_cli": train_cli,
                    "pretrain_cli": pretrain, "overfit": overfit,
-                   "builds": {k: v["seconds"] for k, v in builds.items()},
+                   "temporal_train_parity": temporal_train_small,
+                   "temporal_cli": temporal_cli, "data_parallel": data_parallel,
+                   "builds": {k: v["seconds"] for k, v in builds.items()}, "phase_s": laps,
                    "script_s": time.perf_counter() - script_t0},
                   f, indent=1)
     for r, _ in rows.values():
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "library_ms", "bound_ms")):
             raise AssertionError("non-finite timing")
+    log(f"phase seconds: {laps}")
     log(f"whole script: {time.perf_counter() - script_t0:.1f} s wall")
     log(smi)
     log(json.dumps(table))
@@ -3085,4 +3682,7 @@ def main():
     return 0
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase 32, started by _spawn_ranks
+        {"step": _dp_step_worker, "cli": _dp_cli_worker}[sys.argv[2]](*sys.argv[3:])
+        sys.exit(0)
     sys.exit(main())

@@ -103,6 +103,35 @@ def port_tiny_cfg():
     return presets.veon_tiny_test()
 
 
+def close_per_leaf(got, want, what, zero_up_to_rounding=()):
+    """Each gradient within 1e-4 of its own largest entry; the leaves in
+    `zero_up_to_rounding` (biases in front of a train-mode BatchNorm, whose
+    gradient is 0 but for rounding) within 1e-4 of the largest entry of
+    the whole set."""
+    scale = max(np.abs(w).max() for w in want.values())
+    for n, w in want.items():
+        own = scale if n in zero_up_to_rounding else np.abs(w).max()
+        assert own > 0, n
+        np.testing.assert_allclose(got[n], w, rtol=0, atol=1e-4 * own, err_msg=f"{what} {n}")
+
+
+def zero_grad_biases(model):
+    """Names of the biases whose gradient is 0 but for rounding: a conv
+    bias in front of a train-mode BatchNorm (the batch mean takes it out),
+    and the deformable attention's `key_value_proj.bias` (its key half
+    shifts every sample's logit by the same q . b, since each sample's hat
+    weights sum to 1; its value half shifts the output by a constant that
+    `final_norm` takes out) and `out_proj.bias`."""
+    out = set()
+    for name, mod in model.named_modules():
+        pre = f"{name}." if name else ""
+        if hasattr(mod, "conv") and hasattr(mod, "bn") and mod.conv.bias is not None:
+            out.add(f"{pre}conv.bias")
+        if hasattr(mod, "final_norm"):
+            out |= {f"{pre}out_proj.bias", f"{pre}key_value_proj.bias"}
+    return out
+
+
 _BANNED = ("jax", "flax", "veon_tpu", "ml_dtypes", "sklearn")
 
 

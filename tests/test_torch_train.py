@@ -29,7 +29,6 @@ from veon_tpu_torch.ckpt.from_jax import state_dict_from_jax
 from veon_tpu_torch.configs import presets
 from veon_tpu_torch.configs.base import GridConfig, LossConfig
 from veon_tpu_torch.entry import train_batch, train_entry
-from veon_tpu_torch.model.veon import VeonModel
 from veon_tpu_torch.nn.layers import BatchNorm
 from veon_tpu_torch.train import losses as tlosses
 from veon_tpu_torch.train import step as tstep
@@ -421,9 +420,21 @@ def test_train_entry_defaults_to_the_card():
 
 
 def test_train_step_keeps_f1_only():
+    """A num_temporal=2 model stepped on current-frame batches (the epochs
+    before --temporal-start-epoch) keeps to the F=1 graph: its temporal
+    fusion is not called, so its gradient is zero and its running stats
+    stay; the rest trains. F=2 batches train the fusion too
+    (`test_torch_temporal_train.py`)."""
     _, tcfg = _cfgs(True)
-    model = VeonModel(dataclasses.replace(tcfg, num_temporal=2), device="cpu")
-    imgs, depth, metas = example_batch(dataclasses.replace(tcfg, num_temporal=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="F>1"):
-        model(imgs, depth, metas, torch.zeros(67, 16), train=True)
+    trainer, _ = train_entry(dataclasses.replace(tcfg, num_temporal=2), device="cpu")
+    fusion = trainer.model.alignnet.temporal_fusion
+    stats = {n: b.clone() for n, b in fusion.named_buffers()}
+    losses = trainer(train_batch(tcfg, device="cpu"))
+    assert all(torch.isfinite(v) for v in losses.values())
+    mu = trainer.state.opt_state.mu
+    pre = "alignnet.temporal_fusion."
+    assert any(n.startswith(pre) for n in mu)
+    for n, m in mu.items():
+        assert (not bool(m.abs().max() > 0)) == n.startswith(pre), n
+    assert all(torch.equal(b, stats[n]) for n, b in fusion.named_buffers())
 

@@ -15,7 +15,9 @@ POP-3D retrieval AP with --retrieval), `cache-depth`, `create-infos` and
         [--depth-load-from depth_anything_v2_metric_vkitti_vitl.pth]
     python -m veon_tpu_torch.cli.main train --preset veon_b --work-dir w2 \
         [--load-from SAN.pth --depth-load-from depth.pth] [--auto-resume] \
-        [--accum-steps 2] [--depth-cache data/nuscenes/depth_cache/...]
+        [--accum-steps 2] [--depth-cache data/nuscenes/depth_cache/...] \
+        [--num-temporal 2 --temporal-start-epoch 1] \
+        [--dist-coordinator host:port --dist-num-processes 2 --dist-process-id 0]
     python -m veon_tpu_torch.cli.main publish --ckpt w2/step_N \
         --out-prefix veon_b_epoch24 [--ema]
     python -m veon_tpu_torch.cli.main test --data-root data/nuscenes \
@@ -42,15 +44,18 @@ reference's PyTorch checkpoints (`--load-from`, `--depth-load-from`,
 converted by `ckpt/convert.py`, LoRA folded in), else seeded stand-ins;
 `entry.serve_entry` also takes JAX variables and text-tower params.
 Training writes `<work-dir>/step_<n>/` checkpoints (`ckpt/io.py`); `test
---ckpt` loads one over the model, strict on both sides. Still refused,
-each naming its ROADMAP item: --cam-shards > 1 (16), the multi-process
---dist-* options and --remat policies (11a), temporal training (17), the
-live-model and exported-artifact benchmarks (23, 21).
+--ckpt` loads one over the model, strict on both sides. `train` runs
+data-parallel with one process per card (`train/distributed.py`: the
+--dist-* options, or torchrun's variables); rank 0 alone writes the work
+dir. Still refused, each naming its ROADMAP item: --cam-shards > 1 (16),
+--remat policies (11a), the live-model and exported-artifact benchmarks
+(23, 21).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -83,6 +88,8 @@ from ..nn.zoedepth import ZoeDepthNK
 from ..serve.server import TensorServer
 from ..train.depth_pretrain import depth_trainable, make_depth_pretrain_step, zoe_trainable
 from ..train.loop import _to_device, evaluate_occ, train_epochs, write_depth_cache
+from ..train.distributed import broadcast_state, initialize as dist_init, process_shard
+from ..train.distributed import shutdown as dist_shutdown
 from ..train.step import AdamW, create_train_state, make_train_step, stage2_trainable
 from ..utils.logging import MetricWriter
 from ..utils.params import param_table
@@ -424,47 +431,57 @@ def refuse_unported_training(args):
     if args.cam_shards > 1:
         raise NotImplementedError("camera-sharded training (--cam-shards > 1) is not ported "
                                   "yet: ROADMAP Queue 1 item 16")
-    if any(v is not None for v in (args.dist_coordinator, args.dist_num_processes,
-                                   args.dist_process_id)):
-        raise NotImplementedError("multi-process training (--dist-coordinator, "
-                                  "--dist-num-processes, --dist-process-id) is not ported yet: "
-                                  "ROADMAP Queue 1 item 11a (train/distributed.py)")
     if args.remat != "full":
         raise NotImplementedError(f"--remat {args.remat}: remat policies are not ported (the "
                                   "stage-2 step fits the card without recompute): ROADMAP "
                                   "Queue 1 item 11a")
-    if args.num_temporal > 1 and args.epochs > args.temporal_start_epoch:
-        raise NotImplementedError(
-            f"temporal training (--num-temporal {args.num_temporal} from --temporal-start-epoch "
-            f"{args.temporal_start_epoch} on, within --epochs {args.epochs}) is not ported yet: "
-            "ROADMAP Queue 1 item 17; the epochs before it run on the current frame")
 
 
 def cmd_train(args):
-    """Stage-2 training (counterpart of `cmd_train` on one card): the model
-    from the reference's checkpoints or seeded, the train infos through the
-    dataset (augmented, shuffled per epoch) and loader, AdamW over hsa /
+    """Stage-2 training (counterpart of `cmd_train`): the model from the
+    reference's checkpoints or seeded, the train infos through the dataset
+    (augmented, shuffled per epoch) and loader, AdamW over hsa /
     lift_fusion / alignnet with `--accum-steps` micro-steps per update, the
     EMA, a checkpoint per epoch in --work-dir with its NEXT_EPOCH marker,
     and with --auto-resume the latest of them restored and only the epochs
-    after it run. Scalars go to <work-dir>/train.log.jsonl every 50
-    iterations. Returns {"start_epoch", "step"}."""
+    after it run. With --num-temporal F the epochs from
+    --temporal-start-epoch on train on F frames, those before it on the
+    current frame. With --dist-* (or torchrun's variables) each process
+    trains on its shard of the data on its own card, in lockstep
+    (`train/distributed.py`); rank 0 prints the param table and writes the
+    checkpoints and the log. Scalars go to <work-dir>/train.log.jsonl every
+    50 iterations. Returns {"start_epoch", "step"}."""
     refuse_unported_training(args)
+    opened = dist_init(args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
+                       device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if opened:
+            dist_shutdown()
+
+
+def _train(args):
+    rank, count = process_shard()
     cfg = build_cfg(args)
     model, _tower, ovw, membership, _extras = build_model_and_params(
         cfg, args.load_from, args.depth_load_from, args.bpe_path, device=args.device)
-    print(param_table(model, stage2_trainable))
+    broadcast_state(model)
+    if rank == 0:
+        print(param_table(model, stage2_trainable))
     ds = NuScenesOccDataset(
         infos=load_infos(args.ann), data_cfg=cfg.data, grid=cfg.grid,
         num_temporal=cfg.num_temporal, is_train=True, data_root=args.data_root,
         depth_cache_dir=args.depth_cache)
-    loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True, num_workers=args.workers)
+    loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True, num_workers=args.workers,
+                        shard=(rank, count) if count > 1 else None)
     tx = AdamW(lr=args.lr, accum_steps=args.accum_steps)
     state = create_train_state(model, tx)
     start_epoch = 0
     latest = find_latest(args.work_dir) if args.auto_resume else None
     if latest is not None:
         state = load_checkpoint(latest, target=state)
+        broadcast_state(model)
         start_epoch = checkpoint_next_epoch(latest)
         if start_epoch is None:
             start_epoch = state.step // max(len(ds) // args.batch_size, 1)
@@ -473,10 +490,12 @@ def cmd_train(args):
         else:
             print(f"auto-resumed from {latest} (epoch {start_epoch})")
     step = make_train_step(model, tx, cfg, membership)
-    with MetricWriter(args.work_dir, tensorboard=True) as writer:
+    log = MetricWriter(args.work_dir, tensorboard=True) if rank == 0 else contextlib.nullcontext()
+    with log as writer:
         state = train_epochs(state, step, loader, ovw, max_epochs=args.epochs,
                              start_epoch=start_epoch, work_dir=args.work_dir,
-                             temporal_start_epoch=args.temporal_start_epoch, writer=writer)
+                             temporal_start_epoch=args.temporal_start_epoch, writer=writer,
+                             save=rank == 0)
     return {"start_epoch": start_epoch, "step": state.step}
 
 
@@ -641,9 +660,14 @@ OPTIONS = (
                                        "frames engage"), ("train",)),
     (("--remat",), dict(default="full", help="not ported: must be full (the step needs no "
                         "recompute on the card)"), ("train",)),
-    (("--dist-coordinator",), dict(default=None, help="not ported"), ("train",)),
-    (("--dist-num-processes",), dict(type=int, default=None, help="not ported"), ("train",)),
-    (("--dist-process-id",), dict(type=int, default=None, help="not ported"), ("train",)),
+    (("--dist-coordinator",), dict(default=None, help="host:port of process 0 (multi-process "
+                                   "training; also read from MASTER_ADDR/MASTER_PORT)"),
+     ("train",)),
+    (("--dist-num-processes",), dict(type=int, default=None, help="world size, one process per "
+                                     "card (also read from WORLD_SIZE, or from NNODES where "
+                                     "each host has one card)"), ("train",)),
+    (("--dist-process-id",), dict(type=int, default=None, help="this process's rank (also read "
+                                  "from RANK or NODE_RANK)"), ("train",)),
     (("--pipeline",), dict(type=int, default=1, help="predictions in flight in the eval loop "
                            "(1: strictly serial; 2: frame N+1 uploaded and enqueued before "
                            "frame N's grid is read back)"), ("test", "benchmark")),

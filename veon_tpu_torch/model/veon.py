@@ -19,8 +19,9 @@ Temporal (F>1, frame 0 current, frames 1.. previous): each previous frame
 is lifted with its own metas and no gradient, warped into the current
 ego frame (`align_to_prev`) and fused before the 3D ResBlocks. The
 streaming form takes the previous frames' lifted voxels from a cache
-(`serve/streaming.py`) instead of recomputing them. Eval only: F>1 with
-train=True raises.
+(`serve/streaming.py`) instead of recomputing them. In training the
+previous frames stay outside the gradient (JAX's stop_gradient of their
+voxels) while the temporal fusion, which takes them, trains on all frames.
 
 train=True mirrors the reference's stage-2 no-grad boundary: the depth
 tower, the CLIP trunk features and the side adapter / rec-head outputs are
@@ -119,8 +120,6 @@ class VeonModel(nn.Module):
         (B,Z,Y,X,P+1), and with return_early_vox the current frame's
         pre-fusion voxels in the compute dtype."""
         B, F, N = imgs.shape[:3]
-        if F > 1 and train:
-            raise NotImplementedError("F>1 temporal training is not ported yet")
         flat = imgs.reshape((-1,) + imgs.shape[3:])
         with _frozen(train):
             feats = self._clip_trunk(flat)  # every frame's cameras

@@ -2,8 +2,8 @@
 them (F>1) and the lift-input fusion (counterpart of
 `veon_tpu/nn/alignnet.py`): channel-last 3D (B, Z, Y, X, C). `train=True`
 runs BatchNorm on batch statistics and updates its running stats (flax
-semantics, `nn/layers.py` BatchNorm); the temporal stack runs eval-mode
-BatchNorm only."""
+semantics, `nn/layers.py` BatchNorm), the temporal stack's included: its
+shared BatchNorms move once per call, in JAX's call order."""
 
 from __future__ import annotations
 
@@ -130,7 +130,7 @@ class TemporalDeformable(nn.Module):
         self.out_proj = Conv3d(dim, dim, 1, bias=True, dtype=dtype)
         self.final_norm = BatchNorm(dim)
 
-    def forward(self, feat_prev, feat_curr):
+    def forward(self, feat_prev, feat_curr, train: bool = False):
         B, D, H, W, C = feat_curr.shape
         nh, ns = self.num_heads, self.num_samples
         hd = C // nh
@@ -185,7 +185,7 @@ class TemporalDeformable(nn.Module):
             attn = torch.softmax(attn.float(), -1).to(q.dtype)
             fused = torch.einsum("bmdhws,bmdhwsc->bmdhwc", attn.to(dt), value.to(dt))
             fused = fused.permute(0, 2, 3, 4, 1, 5).reshape(B, D, H, W, C)
-        return F.relu(self.final_norm(self.out_proj(fused)))
+        return F.relu(self.final_norm(self.out_proj(fused), train))
 
 
 class TemporalFusion(nn.Module):
@@ -194,7 +194,9 @@ class TemporalFusion(nn.Module):
     taken newest-last (t_fuse_0 .. t_fuse_{T-2}), the last t_fuse merging
     the current frame into a reference feature, one shared deformable
     attention applied twice (into the current frame and into the merged
-    previous frames), and `t_final` over the three."""
+    previous frames), and `t_final` over the three. With train=True each
+    call moves its BatchNorm's running stats: `before_fusion`'s F times
+    (current frame first), `t_deform.final_norm`'s twice, as flax does."""
 
     def __init__(self, dim: int, num_prev: int, dtype=torch.float32):
         super().__init__()
@@ -204,17 +206,17 @@ class TemporalFusion(nn.Module):
         self.t_deform = TemporalDeformable(dim, dtype=dtype)
         self.t_final = ConvBN3D(3 * dim, dim, relu=False, dtype=dtype)
 
-    def forward(self, cur, prevs: List[torch.Tensor]):
-        cur = self.before_fusion(cur)
-        prevs = [self.before_fusion(p) for p in prevs]
+    def forward(self, cur, prevs: List[torch.Tensor], train: bool = False):
+        cur = self.before_fusion(cur, train)
+        prevs = [self.before_fusion(p, train) for p in prevs]
         prev_feat, idx = prevs[-1], 0
         for f in prevs[-2::-1]:
-            prev_feat = getattr(self, f"t_fuse_{idx}")(torch.cat([f, prev_feat], -1))
+            prev_feat = getattr(self, f"t_fuse_{idx}")(torch.cat([f, prev_feat], -1), train)
             idx += 1
-        ref = getattr(self, f"t_fuse_{idx}")(torch.cat([cur, prev_feat], -1))
-        d1 = self.t_deform(ref, cur)
-        d2 = self.t_deform(ref, prev_feat)
-        return self.t_final(torch.cat([ref, d1, d2], -1))
+        ref = getattr(self, f"t_fuse_{idx}")(torch.cat([cur, prev_feat], -1), train)
+        d1 = self.t_deform(ref, cur, train)
+        d2 = self.t_deform(ref, prev_feat, train)
+        return self.t_final(torch.cat([ref, d1, d2], -1), train)
 
 
 class AlignNet3D(nn.Module):
@@ -233,9 +235,7 @@ class AlignNet3D(nn.Module):
     def forward(self, x, occ_feat_prevs: Optional[List[torch.Tensor]] = None,
                 train: bool = False) -> Dict[str, torch.Tensor]:
         if occ_feat_prevs:
-            if train:
-                raise NotImplementedError("F>1 temporal training is not ported yet")
-            x = self.temporal_fusion(x, occ_feat_prevs)
+            x = self.temporal_fusion(x, occ_feat_prevs, train)
         for body in self.res3d:
             x = body["block"](x, train)
         return {"bin_occ": self.occupancy_pred(x, train), "feat_occ": self.feat_pred(x, train)}

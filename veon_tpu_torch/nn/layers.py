@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import collectives
 from ..ops.resize import resize_bilinear
 
 
@@ -132,7 +133,13 @@ class BatchNorm(nn.Module):
     E[x^2] - E[x]^2 (flax's fast variance, clipped at 0), and moves the
     running stats toward the batch stats, in place:
     stat = 0.9 * stat + 0.1 * batch_stat (the biased variance, unlike
-    torch.nn.BatchNorm's unbiased running variance)."""
+    torch.nn.BatchNorm's unbiased running variance). While a process group
+    is open, train mode averages E[x] and E[x^2] over the ranks before the
+    variance, as flax's BatchNorm with `axis_name`, so every rank
+    normalises with the same stats. The sync is ambient: it follows the
+    process-global default group (`collectives.data_parallel`), not an
+    attribute of the layer, so every train-mode BatchNorm syncs while one
+    is open."""
 
     momentum = 0.9
 
@@ -148,8 +155,10 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+            if collectives.data_parallel():
+                mean, mean2 = collectives.sync_mean(torch.stack([mean, mean2])).unbind(0)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

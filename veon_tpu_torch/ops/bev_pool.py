@@ -163,10 +163,11 @@ def bev_pool_pooled(depth, feat, order, rk_sorted, num_cells: int, pool_r: int):
     starts = _cell_starts(rk_sorted, num_cells, pool_r)
     long_list = torch.empty(n_coarse + 65, dtype=torch.int32, device=dev)  # the kernel's scratch
     fn = native.function("bev_pool_pooled", "veon_bev_pool_pooled", _POOLED_ARGTYPES)
-    err = fn(feat.data_ptr(), weights.data_ptr(), pix_stride, bin_stride, order.data_ptr(),
-             rk_sorted.data_ptr(), starts.data_ptr(), out.data_ptr(), long_list.data_ptr(),
-             n_coarse, C, depth.shape[2], pool_r, _DTYPE_CODE[feat.dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the tensors' card, whichever is current
+        err = fn(feat.data_ptr(), weights.data_ptr(), pix_stride, bin_stride, order.data_ptr(),
+                 rk_sorted.data_ptr(), starts.data_ptr(), out.data_ptr(), long_list.data_ptr(),
+                 n_coarse, C, depth.shape[2], pool_r, _DTYPE_CODE[feat.dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"bev_pool_pooled launch failed: cudaError {err}")
     bev_pool_pooled.launches += 1
@@ -205,8 +206,9 @@ def _launch_sorted(name, streams, num_cells: int):
     symbol = "veon_bev_pool_sorted" if len(streams) == 1 else "veon_bev_pool_sorted2"
     fn = native.function("bev_pool_sorted", symbol, (ctypes.c_void_p,) * (len(ptrs) + 1)
                          + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
-    err = fn(*ptrs, out.data_ptr(), num_cells, C, _DTYPE_CODE[dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the tensors' card, whichever is current
+        err = fn(*ptrs, out.data_ptr(), num_cells, C, _DTYPE_CODE[dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out

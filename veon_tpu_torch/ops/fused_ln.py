@@ -68,9 +68,10 @@ def ln_dense(x, ln_scale, ln_bias, w, b, eps: float = 1e-5):
     if M == 0:
         return out
     fn = native.function("ln_dense", "veon_ln_dense", _ARGTYPES)
-    err = fn(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w.data_ptr(),
-             vecs[2].data_ptr(), out.data_ptr(), M, C, N, eps, _DTYPE_CODE[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the tensors' card, whichever is current
+        err = fn(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w.data_ptr(),
+                 vecs[2].data_ptr(), out.data_ptr(), M, C, N, eps, _DTYPE_CODE[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ln_dense launch failed: cudaError {err}")
     ln_dense.launches += 1

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ckpt.io import save_checkpoint
+from .distributed import barrier
 
 _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
            np.dtype(np.uint64): np.uint32}
@@ -82,16 +83,18 @@ def _truncate_temporal(batch):
 def train_epochs(state, step_fn, loader, ov_weight, max_epochs: int = 24, start_epoch: int = 0,
                  work_dir: str = "work_dir", log_interval: int = 50,
                  temporal_start_epoch: int = 0, log_fn: Callable[[str], None] = print,
-                 writer=None):
+                 writer=None, save: bool = True):
     """The stage-2 epoch loop: per epoch, `loader.set_epoch`, each batch
     without token / gt_depth / mask_lidar, truncated to the current frame
     before `temporal_start_epoch`, with `ov_weight` and the epoch (which the
     loss's priority-ignorance schedule reads), double-buffered onto the
     model's device and stepped; every `log_interval` iterations a log line
     (and `writer`, a `utils/logging.py` MetricWriter, gets the scalars and
-    sec_per_iter); after each epoch a checkpoint with `next_epoch`. Returns
-    the state."""
-    os.makedirs(work_dir, exist_ok=True)
+    sec_per_iter); after each epoch a checkpoint with `next_epoch` where
+    `save` (the other ranks of a process group pass False and wait at a
+    barrier while it is written). Returns the state."""
+    if save:
+        os.makedirs(work_dir, exist_ok=True)
     device = next(state.model.parameters()).device
     for epoch in range(start_epoch, max_epochs):
         loader.set_epoch(epoch)
@@ -115,7 +118,9 @@ def train_epochs(state, step_fn, loader, ov_weight, max_epochs: int = 24, start_
                 log_fn(f"epoch {epoch + 1} iter {it + 1}/{len(loader)} ({dt:.2f}s/iter) {msg}")
                 if writer is not None:
                     writer.write(dict(scalars, sec_per_iter=dt), state.step, epoch)
-        save_checkpoint(work_dir, state.step, state, next_epoch=epoch + 1)
+        if save:
+            save_checkpoint(work_dir, state.step, state, next_epoch=epoch + 1)
+        barrier()
         log_fn(f"saved checkpoint for epoch {epoch + 1}")
     return state
 

@@ -17,6 +17,11 @@ optax.MultiSteps: each micro-step folds its gradient into a running mean,
 acc + (g - acc) / (n + 1), and every accum_steps-th applies one update of
 that mean, the inner count (clip, bias correction, warmup) advancing once
 per update.
+
+While a process group is open (`collectives.py`, one rank per card), the
+step is JAX's shard_map step over a ("batch",) mesh: BatchNorm syncs
+its batch stats, and the gradients (before the optimizer, so accumulation
+folds their mean) and the losses are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import collectives
 from ..configs.base import VeonConfig
 from ..model.veon import VeonModel
 from ..nn.layers import BatchNorm
@@ -243,11 +249,14 @@ def make_train_step(model: VeonModel, tx: AdamW, cfg: VeonConfig, membership: np
         # zero gradient, as JAX's
         grads = dict(zip(params, torch.autograd.grad(total, list(params.values()),
                                                      allow_unused=True, materialize_grads=True)))
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["loss_total"] = total.detach()
+        if collectives.data_parallel():
+            grads = dict(zip(grads, collectives.all_reduce_mean(list(grads.values()))))
+            losses = dict(zip(losses, collectives.all_reduce_mean(list(losses.values()))))
         mark("backward")
         state = apply_gradients(tx, state, grads, params)
         mark("optimizer_and_ema")
-        losses = {k: v.detach() for k, v in losses.items()}
-        losses["loss_total"] = total.detach()
         return state, losses
 
     return step
