@@ -77,11 +77,11 @@ Phases; any failed check raises, so the exit code is non-zero:
  18. the host data plane on a 16-frame shard of 900x1600 JPEGs
      (`utils/loader_bench.py` `make_frames`): the g++ library of
      `data/native.py` built, its depth projection and voxel ranks against
-     numpy, loader frames/s with 2 and 4 workers in thread and in process
-     mode (forked after the card's context exists);
+     numpy, loader frames/s over 8 frames with 2 and 4 workers in thread
+     and in process mode (forked after the card's context exists);
  19. the eval loop, a main path: the tiny fixture's `test` with mirror
      files card vs CPU, then through `cli/main.py` `main` at full VEON-B
-     width with seeded weights, fp32: `test` over 8 frames (kernel #3 once
+     width with seeded weights, fp32: `test` over 4 frames (kernel #3 once
      per frame), `--pipeline 2` and `--raw-uint8` (equal grids),
      `--num-temporal 2` (#3 twice per frame), `test --retrieval` on a
      3-item CSV, `cache-depth` on 2 frames (idempotent), and `benchmark
@@ -111,7 +111,7 @@ Phases; any failed check raises, so the exit code is non-zero:
      one epoch of a 3-frame fixture, and a save/resume step against the
      straight run on the card;
  27. stage 2 through the CLI, a main path: `train --preset veon_b` fp32 on
-     4 frames of phase 19's shard with its LiDAR sweeps, `--epochs 1`
+     2 frames of phase 19's shard with its LiDAR sweeps, `--epochs 1`
      then `--epochs 2 --auto-resume` (epoch 2 alone), #3 once per step;
      `--accum-steps 2` (params move every second step); `publish --ema`,
      `test --ckpt` on it (#3 once per frame), `test --all-ckpts
@@ -129,7 +129,7 @@ Phases; any failed check raises, so the exit code is non-zero:
      the same CPU-seeded weights, phase 26's tolerances, #3 twice;
  31. temporal training through the CLI, a main path: `train --preset
      veon_b --num-temporal 2 --temporal-start-epoch 1 --epochs 2` fp32 on
-     4 frames of the shard with LiDAR sweeps (#3 once per epoch-0 step,
+     2 frames of the shard with LiDAR sweeps (#3 once per epoch-0 step,
      twice per epoch-1 step), one `--auto-resume` epoch, `test
      --num-temporal 2 --ckpt` on its checkpoint; ms/step and peak per
      epoch; `train_entry` bf16 at F=2 and F=4 (peaks, the temporal
@@ -144,7 +144,30 @@ Phases; any failed check raises, so the exit code is non-zero:
      --dist-coordinator` fp32 as two processes sharing the card over gloo
      on 4 frames of the shard with LiDAR sweeps, 2 steps per rank: #3 once
      per step per rank, rank 0 alone writes, the ranks end bit-equal. The
-     ranks are this script's own processes (`--dp-worker`).
+     ranks are this script's own processes (`--dp-worker`). Phases 27, 31
+     and 32(c) pass `--remat none`, the step they measured before the
+     CLI's default `full` recomputed;
+ 33. weights-day parity, a main path (run after phase 17, on phase 15's
+     files): the example batch through the converted VEON-B model with the
+     pools' plain versions, written as a reference dump in the reference's
+     torch layouts; `parity --preset veon_b --dumps` fp32 on the card, every
+     row ok, #3 once; one boundary x 1.05 through the CLI in a process of
+     its own: exit 1, that row alone; the T=2 and zoe legs at the tiny
+     preset; dump bytes, compare s, peak host memory;
+ 34. `vis --preset veon_b` through the CLI (run with phase 19's shard), a
+     main path: the synthetic frame and the shard's first through --ann,
+     image shapes, one PLY point per non-free voxel, six overlays, #3 once
+     per run;
+ 35. `train --preset veon_b --remat none|full|dots_saveable` fp32 through
+     the CLI on 2 frames of the shard, a main path (#3 once per step), and
+     `train_entry` bf16 per policy: losses and running stats against
+     none's, ms/step and peaks;
+ 36. REC_CROSS_ATTN=False with the bilinear rec downsample: the tiny preset
+     card vs CPU, then a main path at VEON-B bf16 through `entry` (#1 once
+     per frame), unit-norm mask embeddings, the dense mask's bytes;
+ 37. the profiling tools: `lift_microbench` at VEON-B lift shapes (#2 once
+     per call), `flops` of the F=1 bf16 forward, a parsed Chrome trace of
+     one frame.
 Phases 11-12 serve through the CLI's handler, which computes in the
 preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
@@ -1611,7 +1634,7 @@ def weights_tiny_phase():
                 pred_differ=int(differ.sum()), near_ties=int(ties.sum()))
 
 
-def weights_main_path(frame_ms):
+def weights_main_path(frame_ms, root):
     """Weights day at full VEON-B width (fp32, the preset's dtype), a main
     path: full-width reference-layout files (SAN ViT-B with the text tower,
     DA-V2-L with LoRA r=16), every key read but the ignored ones; the
@@ -1621,7 +1644,8 @@ def weights_main_path(frame_ms):
     --load-from --depth-load-from --bpe-path` answering 3 requests with text
     tokens, kernel #1 once per request, each `pred` equal to `FrameServer`
     on the same loaded model and the classifier equal to `text_classifier`
-    on the loaded tower. Returns the converted variables for phase 17."""
+    on the loaded tower. The files stay in `root` for phase 33. Returns the
+    converted variables for phase 17."""
     import contextlib
     import io
 
@@ -1635,7 +1659,6 @@ def weights_main_path(frame_ms):
 
     cfg = presets.veon_b()
     base = phase_base()
-    root = tempfile.mkdtemp(prefix="veon_b_ckpts")
     d = socket_dir()
     try:
         paths, write_s, nbytes = mirror_weights(cfg, root)
@@ -1678,8 +1701,9 @@ def weights_main_path(frame_ms):
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t
         tok = ClipTokenizer(paths["bpe"])
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    except BaseException:
+        shutil.rmtree(d, ignore_errors=True)
+        raise
     if handler.cfg.compute_dtype != "float32":
         raise AssertionError(f"the CLI serves {handler.cfg.compute_dtype}, not the preset's fp32")
     if not torch.equal(handler.server.ov_weight, ovw):
@@ -1921,11 +1945,11 @@ def data_plane_phase(root):
     sweep into six 512x1408 augmented views held against the numpy one
     (1e-6 where both fill a pixel; a point may change pixel only on a
     pixel boundary), its voxel ranks of a VEON-B frustum (6 x 88 x 32 x 88 points)
-    equal to numpy's division; then `loader_bench.loader_fps` on the
-    16-frame 900x1600 JPEG shard under root with 2 and 4 workers in thread
-    mode, and over its first 8 frames in process mode (forked after the
-    card's context exists; at ~0.9 frames/s the mode's rate needs no more
-    frames, and the script's time does)."""
+    equal to numpy's division; then `loader_bench.loader_fps` over the
+    first 8 frames of the 900x1600 JPEG shard under root with 2 and 4
+    workers in thread and in process mode (forked after the card's context
+    exists; at 0.9-3 frames/s the rates need no more frames, and the
+    script's time does)."""
     from veon_tpu_torch.configs import presets
     from veon_tpu_torch.data import native, transforms as T
     from veon_tpu_torch.data.depth_gt import (lidar2img_matrices, points_to_depth_map,
@@ -1989,14 +2013,13 @@ def data_plane_phase(root):
         f"native {native_ms:.3f} ms, numpy {numpy_ms:.3f} ms, max diff {depth_err:.3g}, "
         f"{filled} pixels, {moved} moved ({edge} points on a boundary); ranks of {ranks.size} frustum points {ranks_ms:.3f} ms, equal, "
         f"{int(ok.sum())} in the grid")
-    pkls = {"thread": os.path.join(root, "infos.pkl"),
-            "process": shard_paths(root, 8, "loader_process")}
+    pkl = shard_paths(root, 8, "loader")
     fps = {}
-    for mode, pkl in pkls.items():
+    for mode in ("thread", "process"):
         for workers in (2, 4):
             fps[f"{mode}_{workers}"] = loader_fps(pkl, root, workers, mode)
-    log(f"loader frames/s on the 900x1600 shard (VEON-B eval samples, 16 frames in threads, "
-        f"8 in processes, {os.cpu_count()} cores): {fps}")
+    log(f"loader frames/s on the 900x1600 shard (VEON-B eval samples, 8 frames, "
+        f"{os.cpu_count()} cores): {fps}")
     return dict(native_jpeg=native.has_jpeg(), build_s=build_s, depth_native_ms=native_ms,
                 depth_numpy_ms=numpy_ms, depth_max_diff=depth_err, depth_pixels=filled,
                 depth_pixels_moved=moved, boundary_points=edge,
@@ -2796,7 +2819,10 @@ def train_cli_phase(root, frames=4):
     frame and checkpoint), and `--ema` on the published one refused."""
     pkl = train_shard(root, frames)
     work = tempfile.mkdtemp(prefix="veon_train", dir=root)
-    base = ["--preset", "veon_b", "--data-root", root, "--ann", pkl, "--workers", "2"]
+    # --remat none: the step these phases measured before the CLI's default
+    # `full` recomputed (phase 35 compares the policies)
+    base = ["--preset", "veon_b", "--data-root", root, "--ann", pkl, "--workers", "2",
+            "--remat", "none"]
     res = {}
     start = phase_base()
     torch.cuda.reset_peak_memory_stats()
@@ -3100,7 +3126,8 @@ def temporal_cli_phase(root, frames=4):
     pkl = train_shard(root, frames)
     work = tempfile.mkdtemp(prefix="veon_ttrain", dir=root)
     base = ["--preset", "veon_b", "--num-temporal", "2", "--temporal-start-epoch", "1",
-            "--data-root", root, "--ann", pkl, "--workers", "2", "--work-dir", work]
+            "--data-root", root, "--ann", pkl, "--workers", "2", "--work-dir", work,
+            "--remat", "none"]
     res, launches_sorted2 = {}, 0
     start = phase_base()
     with step_probe("make_train_step", peaks=True) as probe:
@@ -3304,9 +3331,9 @@ def _dp_cli_worker(rank, port, root, pkl, work, out):
                                                       orig_step(model, *a, **k))[1]
     with step_probe("make_train_step", peaks=True) as probe:
         res = cli_mod.main(["train", "--preset", "veon_b", "--data-root", root, "--ann", pkl,
-                            "--workers", "1", "--epochs", "1", "--work-dir", work,
-                            "--dist-coordinator", f"localhost:{port}", "--dist-num-processes",
-                            "2", "--dist-process-id", str(rank)])
+                            "--workers", "1", "--epochs", "1", "--work-dir", work, "--remat",
+                            "none", "--dist-coordinator", f"localhost:{port}",
+                            "--dist-num-processes", "2", "--dist-process-id", str(rank)])
     torch.cuda.synchronize()
     digest = {n: hashlib.sha256(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
                                 .numpy()).hexdigest()
@@ -3501,6 +3528,539 @@ def data_parallel_phase(root, rounds=12):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 33-37: parity --dumps, vis, train --remat, the rec-head options,
+# profiling
+# ---------------------------------------------------------------------------
+
+
+def reference_layout(got, F, B=1, N=6):
+    """The port's boundaries (`parity/compare.py` `run_boundaries`, its
+    layouts) -> the npz entries the reference's `dump_reference.py` writes:
+    the inverse of the comparator's adapters. Per-frame calls: @p<i> is
+    call i-1, the bare name call F-1; single-call boundaries over all B*N*F
+    cameras cam-major (the current frame's tiled where the port decodes the
+    current frame only); the fused 2D lift input is not dumped."""
+    def cam_major(x):  # (B*F*N frame-major, ...) -> (B*N*F, ...) cam-major
+        x = x.reshape((B, F, N) + x.shape[1:])
+        return np.swapaxes(x, 1, 2).reshape((B * N * F,) + x.shape[3:])
+
+    def tile(x):  # current frame only (B*N, ...) -> (B*N*F, ...)
+        x = x.reshape((B, N, 1) + x.shape[1:])
+        return np.broadcast_to(x, (B, N, F) + x.shape[3:]).reshape((B * N * F,) + x.shape[3:])
+
+    out = {}
+    for name, a in got.items():
+        base, _, tag = name.partition("@")
+        c = int(tag[1:]) - 1 if tag else F - 1
+        if base.startswith("clip_tokens."):
+            sub = base.split(".", 1)[1]
+            out[f"clip_tokens#0/{sub[:-4]}_cls_token" if sub.endswith("_cls")
+                else f"clip_tokens#0/{sub}"] = (cam_major(a).transpose(1, 0, 2)
+                                                if sub.endswith("_cls")
+                                                else cam_major(a).transpose(0, 3, 1, 2))
+        elif base in ("sa_mask_preds", "sa_attn_bias", "rec_mask_embs"):
+            key = {"sa_mask_preds": "side_adapter#0/0/0", "sa_attn_bias": "side_adapter#0/1/0",
+                   "rec_mask_embs": "rec_mask_embs#0"}[base]
+            out[key] = tile(a)
+        elif base == "rec_update_proj":
+            out[f"rec_update#{c}/clip_feat_proj"] = a.transpose(0, 3, 1, 2)
+        elif base == "hsa_attn_dense":
+            out.update({f"hsa#{c}/1/{i}": a[i] for i in range(a.shape[0])})
+        elif base == "hsa_supp":
+            out[f"hsa#{c}/2/0"] = a.transpose(0, 3, 1, 2)
+        elif base == "lift_vox":
+            out[f"lift#{c}"] = a.transpose(0, 4, 1, 2, 3)
+        elif base == "occ_early":
+            out[f"occ_early#{c}"] = a.transpose(0, 4, 1, 2, 3)
+        elif base in ("occ_bin", "occ_feat"):
+            out[f"occ_heads#0/{'bin_occ' if base == 'occ_bin' else 'feat_occ'}"] = \
+                a.transpose(0, 4, 1, 2, 3)
+        elif base in ("out_sem_seg_ds", "out_sem_embed_ds", "out_clip_feat"):
+            out[f"outputs#0/{base[4:]}"] = a.transpose(0, 1, 4, 2, 3)
+        elif base in ("out_bin_occ", "out_feat_occ"):
+            out[f"outputs#0/{base[4:]}"] = a.transpose(0, 4, 1, 2, 3)
+    return out
+
+
+def dump_inputs(imgs, depth, metas, depth_imgs=None):
+    """The port's (B, F, N, ...) batch -> the reference dump's inputs.npz
+    entries: cameras cam-major (B, N*F, ...), images NCHW."""
+    def cm(x):
+        x = x.cpu().numpy()
+        B, F, N = x.shape[:3]
+        return np.swapaxes(x, 1, 2).reshape((B, N * F) + x.shape[3:])
+
+    out = {"imgs": cm(imgs).transpose(0, 1, 4, 2, 3), "depth": cm(depth),
+           "bda": metas["bda"].cpu().numpy()}
+    for k in ("sensor2egos", "ego2globals", "intrins", "post_rots", "post_trans"):
+        out[k] = cm(metas[k])
+    F = imgs.shape[1]
+    if F > 1:
+        out["adj_meta_0"] = metas["lidarego2global"].cpu().numpy()
+        for i in range(1, F):
+            out[f"adj_meta_{i}"] = metas["prev_lidarego2global"][:, i - 1].cpu().numpy()
+    if depth_imgs is not None:
+        d = cm(depth_imgs)
+        out["depth_imgs_flat"] = d.reshape((-1,) + d.shape[2:]).transpose(0, 3, 1, 2)
+    return out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The pools' plain PyTorch versions on card tensors: kernels #1-#3's
+    wrappers, as `ops/bev_pool.py` calls them, patched for the block."""
+    from unittest import mock
+
+    from veon_tpu_torch.ops import bev_pool as bp
+
+    def sorted1(vals, rk, num_cells):
+        return bp.bev_pool_sorted_plain([(vals, rk)], num_cells, vals.dtype)
+
+    def sorted2(vals1, rk1, vals2, rk2, num_cells):
+        return bp.bev_pool_sorted_plain([(vals1, rk1), (vals2, rk2)], num_cells, vals1.dtype)
+
+    def pooled(depth, feat, order, rk, num_cells, pool_r):
+        return bp.bev_pool_pooled_plain(bp.presorted_vals(depth, feat, order), rk, num_cells,
+                                        pool_r, feat.dtype)
+
+    with mock.patch.object(bp, "bev_pool_sorted", sorted1), \
+            mock.patch.object(bp, "bev_pool_sorted2", sorted2), \
+            mock.patch.object(bp, "bev_pool_pooled", pooled):
+        yield
+
+
+def write_dump(d, inputs, bnd):
+    """inputs.npz, boundaries.npz and manifest.json under d; their bytes."""
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, "inputs.npz"), **inputs)
+    np.savez(os.path.join(d, "boundaries.npz"), **bnd)
+    with open(os.path.join(d, "manifest.json"), "w") as f:
+        json.dump({"boundaries": sorted({k.split("#")[0] for k in bnd})}, f)
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def _report_rows(out):
+    """(boundary, verdict) of each row of a printed parity table."""
+    rows = []
+    for ln in out.splitlines():
+        parts = ln.split()
+        if parts and parts[-1] in ("ok", "FAIL") or "SKIP (" in ln:
+            rows.append((parts[0], "SKIP" if "SKIP (" in ln else parts[-1]))
+    return rows
+
+
+def _proc_status(key):
+    with open("/proc/self/status") as f:
+        return next(int(ln.split()[1]) * 1024 for ln in f if ln.startswith(key))
+
+
+def host_peak(fn, every=0.01):
+    """(fn(), the largest resident bytes of this process sampled every
+    `every` s while fn ran, its resident bytes before). Sampled: the card's
+    machine does not let a process reset its high-water mark."""
+    import threading
+
+    before = _proc_status("VmRSS")
+    peak, done = [before], threading.Event()
+
+    def sample():
+        while not done.wait(every):
+            peak[0] = max(peak[0], _proc_status("VmRSS"))
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        th.join()
+    return out, max(peak[0], _proc_status("VmRSS")), before
+
+
+def parity_phase(root):
+    """Phase 33, weights-day parity through the CLI, a main path: phase 15's
+    full-width VEON-B files (fp32) loaded by the CLI's route, the example
+    batch through the model with the pools' plain versions (`plain_kernels`)
+    and its boundaries written as a reference dump in the reference's torch
+    layouts (`reference_layout`); `parity --preset veon_b --dumps` with the
+    same files on the card: every compared row ok (only the undumped
+    lift_fused_2d skipped), kernel #3 once (the in-graph banded lift), and
+    the host memory the command peaked at (`host_peak`, sampled). Then a copy with
+    the inputs and the rec head's, side adapter's, heads' and outputs'
+    boundaries, rec_mask_embs scaled by 1.05 (rel tolerance 1e-2): exit 1,
+    that row alone FAIL. Then the T=2 and zoe legs at the tiny preset on
+    the card, the dumps from the tiny files' model on the CPU."""
+    import io
+    from unittest import mock
+
+    from veon_tpu_torch.cli import main as cli_mod
+    from veon_tpu_torch.cli.shapes import example_batch, example_batch_full
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.parity.compare import run_boundaries
+
+    cfg = presets.veon_b()
+    paths = {"san": os.path.join(root, "clipsan", "SAN_ViT-B.pth"),
+             "depth": os.path.join(root, "depth_pretrain", "depthanythingv2_pretrain_large.pth"),
+             "bpe": os.path.join(root, "bpe_simple_vocab_16e6.txt.gz")}
+    weights = ["--load-from", paths["san"], "--depth-load-from", paths["depth"], "--bpe-path",
+               paths["bpe"]]
+    dumps = tempfile.mkdtemp(prefix="veon_dump")
+    res = {}
+    try:
+        t = time.perf_counter()
+        model, _tower, ovw, _m, _e = cli_mod.build_model_and_params(
+            cfg, paths["san"], paths["depth"], paths["bpe"], device="cuda")
+        imgs, depth, metas = example_batch(cfg, device="cuda")
+        kernels = reset_launches()
+        with plain_kernels():
+            got = run_boundaries(model, {"imgs": imgs, "depth": depth, "metas": metas}, ovw)
+        plain_launches = {k: fn.launches for k, fn in kernels.items()}
+        expect_launches(plain_launches, {k: 0 for k in kernels}, "the dump's plain forward")
+        bnd = dict(reference_layout(got, 1), **{"outputs#0/ov_classifier_weight":
+                                               ovw.cpu().numpy()})
+        del model, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        d = os.path.join(dumps, "veon_b")
+        nbytes = write_dump(d, dump_inputs(imgs, depth, metas), bnd)
+        dump_s = time.perf_counter() - t
+        (rows, out, cli_s, launches), peak, rss0 = host_peak(lambda: run_cli(
+            ["parity", "--preset", "veon_b", "--dumps", d, *weights]))
+        expect_launches(launches, {k: int(k == "bev_pool_sorted2") for k in launches},
+                        "parity --preset veon_b")
+        bad = [r for r in rows if r["ok"] is False]
+        skipped = {r["boundary"] for r in rows if r["ok"] is None}
+        if bad or skipped != {"lift_fused_2d"} or len(rows) < 20:
+            raise AssertionError(f"parity veon_b: failed {bad}, skipped {skipped}\n{out}")
+        compare_line = [ln for ln in out.splitlines() if ln.startswith("dump ")][0]
+        worst = min(rows, key=lambda r: (r.get("cos", 1.0), -r.get("rel", 0.0)))
+        shutil.rmtree(d, ignore_errors=True)
+        # the corrupted copy: the inputs and a few boundaries (the rest would
+        # only be re-read), one of them rec_mask_embs x 1.05
+        keep = [k for k in bnd if k.split("#")[0] in ("rec_mask_embs", "side_adapter",
+                                                      "occ_heads", "outputs")]
+        small = {k: bnd[k] for k in keep}
+        small["rec_mask_embs#0"] = small["rec_mask_embs#0"] * 1.05
+        del bnd
+        bad_d = os.path.join(dumps, "veon_b_bad")
+        write_dump(bad_d, dump_inputs(imgs, depth, metas), small)
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                cli_mod.main(["parity", "--preset", "veon_b", "--dumps", bad_d, *weights])
+            except SystemExit as e:
+                code = e.code
+            else:
+                code = 0
+        bad_s = time.perf_counter() - t
+        failed = [b for b, v in _report_rows(buf.getvalue()) if v == "FAIL"]
+        if code != 1 or failed != ["rec_mask_embs"]:
+            raise AssertionError(f"parity on a dump with rec_mask_embs x 1.05: exit {code}, "
+                                 f"failed rows {failed}\n{buf.getvalue()[-3000:]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(bad_d, ignore_errors=True)
+        res["veon_b"] = dict(rows=rows, dump_bytes=nbytes, dump_s=dump_s, cli_s=cli_s,
+                             compare_line=compare_line, launches=launches,
+                             host_peak_bytes=peak, host_rss_before_bytes=rss0,
+                             corrupted=dict(exit=code, failed=failed, s=bad_s,
+                                            boundaries=len(small)))
+        log(f"parity --preset veon_b fp32 (phase 15's files, the dump from the plain pools): "
+            f"{sum(1 for r in rows if r['ok'])} rows ok, skipped {sorted(skipped)}, lowest cos "
+            f"{worst['boundary']} {worst['cos']:.7f} (rel {worst['rel']:.3g}); {compare_line}; "
+            f"this script's resident memory {rss0 / 2**30:.3f} GiB before the command, peak "
+            f"{peak / 2**30:.3f} GiB during it (sampled every 10 ms); dump written in {dump_s:.1f} s, CLI "
+            f"{cli_s:.1f} s, launches {launches}; rec_mask_embs x 1.05 ({len(small)} "
+            f"boundaries): exit {code}, FAIL {failed}, {bad_s:.1f} s")
+        # T=2 and the zoe leg at the tiny preset: files, the dump on the CPU, the CLI on the card
+        tiny = {"t2": presets.veon_tiny_test(num_temporal=2),
+                "zoe": with_tiny_zoe(presets.veon_tiny_test())}
+        for leg, tcfg in tiny.items():
+            troot = os.path.join(dumps, f"{leg}_w")
+            tp, _s, _b = mirror_weights(tcfg, troot)
+            model, _tower, ovw, _m, _e = cli_mod.build_model_and_params(
+                tcfg, tp["san"], tp["depth"], tp["bpe"], device="cpu")
+            if leg == "t2":
+                imgs, depth, metas = example_batch(tcfg, device="cpu")
+                depth_imgs, extra = None, {}
+            else:
+                imgs, depth_imgs, metas = example_batch_full(tcfg, device="cpu")
+                rel = []
+                h = model.depth.core.register_forward_hook(lambda _m, _a, o: rel.append(o[0]))
+                with torch.no_grad():
+                    depth = model.estimate_depth(depth_imgs)
+                h.remove()
+                extra = {"zoe_core#0/0": rel[-1].numpy()}
+            got = run_boundaries(model, {"imgs": imgs, "depth": depth, "metas": metas}, ovw)
+            bnd = dict(reference_layout(got, tcfg.num_temporal), **extra,
+                       **{"outputs#0/ov_classifier_weight": ovw.numpy()})
+            td = os.path.join(dumps, leg)
+            tbytes = write_dump(td, dump_inputs(imgs, depth, metas, depth_imgs), bnd)
+            preset = "veon_tiny_zoe" if leg == "zoe" else "veon_tiny_test"
+            with mock.patch.object(presets, "veon_tiny_zoe", lambda **kw: with_tiny_zoe(
+                    presets.veon_tiny_test(**kw)), create=True):
+                trows, tout, ts, tl = run_cli([
+                    "parity", "--preset", preset, "--num-temporal", str(tcfg.num_temporal),
+                    "--dumps", td, "--load-from", tp["san"], "--depth-load-from", tp["depth"],
+                    "--bpe-path", tp["bpe"]])
+            names = {r["boundary"] for r in trows if r["ok"]}
+            need = {"lift_vox@p1", "occ_early@p1", "hsa_supp@p1"} if leg == "t2" else \
+                {"depth_pred", "zoe_rel_depth"}
+            if any(r["ok"] is False for r in trows) or not need <= names:
+                raise AssertionError(f"parity tiny {leg} card vs CPU dump:\n{tout}")
+            res[leg] = dict(rows=trows, dump_bytes=tbytes, cli_s=ts, launches=tl)
+            log(f"parity tiny {leg} (dump on the CPU, CLI on the card): {len(names)} rows ok "
+                f"(among them {sorted(need)}), {tbytes} B, launches {tl}")
+    finally:
+        shutil.rmtree(dumps, ignore_errors=True)
+    res["launches_sorted2"] = res["veon_b"]["launches"]["bev_pool_sorted2"]
+    return res
+
+
+def vis_phase(root):
+    """Phase 34, `vis --preset veon_b` through the CLI, a main path, fp32
+    with seeded weights: on the synthetic batch and on the first frame of
+    phase 18's shard (--ann): occ_bev.png (200, 200, 3), occ_slices.png
+    (200, 3200, 3), the PLY's vertex count equal to the non-free voxels of
+    the predicted grid (captured at the CLI's fusion rule) and to the NPY's
+    rows, one overlay per camera at the input size; kernel #3 once per run."""
+    from PIL import Image
+
+    from veon_tpu_torch.cli import main as cli_mod
+
+    res = {}
+    work = tempfile.mkdtemp(prefix="veon_vis")
+    fused, preds = cli_mod.fused_classes, []
+    cli_mod.fused_classes = lambda out, m: preds.append(fused(out, m)) or preds[-1]
+    try:
+        for src, extra in (("synthetic", ["--ann", os.path.join(work, "absent.pkl")]),
+                           ("shard", ["--ann", os.path.join(root, "infos.pkl"), "--data-root",
+                                      root])):
+            wd = os.path.join(work, src)
+            paths, out, s, launches = run_cli(["vis", "--preset", "veon_b", "--work-dir", wd,
+                                               *extra])
+            expect_launches(launches, {k: int(k == "bev_pool_sorted2") for k in launches},
+                            f"vis {src}")
+            pred = preds[-1][0].cpu().numpy()
+            shapes = {k: np.asarray(Image.open(paths[k])).shape for k in ("bev", "slices")}
+            cams = [np.asarray(Image.open(p)).shape for p in paths["semseg"]]
+            with open(paths["ply"]) as f:
+                head = [next(f) for _ in range(3)][2].split()
+            verts = np.load(paths["npy"])
+            nonfree = int((pred < 17).sum())
+            if shapes != {"bev": (200, 200, 3), "slices": (200, 3200, 3)} or \
+                    int(head[2]) != nonfree or len(verts) != nonfree or \
+                    cams != [(512, 1408, 3)] * 6:
+                raise AssertionError(f"vis {src}: {shapes}, PLY {head}, {len(verts)} points vs "
+                                     f"{nonfree} non-free voxels, overlays {cams}")
+            res[src] = dict(s=s, launches=launches, vertices=nonfree, shapes=shapes,
+                            ply_bytes=os.path.getsize(paths["ply"]))
+            log(f"vis --preset veon_b fp32 on the {src} frame: {shapes}, {nonfree} points in the "
+                f"PLY ({os.path.getsize(paths['ply'])} B) = the grid's non-free voxels, 6 "
+                f"overlays (512, 1408, 3); {s:.1f} s, launches {launches}")
+    finally:
+        cli_mod.fused_classes = fused
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches_sorted2"] = sum(res[k]["launches"]["bev_pool_sorted2"] for k in
+                                  ("synthetic", "shard"))
+    return res
+
+
+REMAT_POLICIES = ("none", "full", "dots_saveable")
+
+
+def remat_phase(root, frames=2):
+    """Phase 35, `train --remat` through the CLI, a main path: `train
+    --preset veon_b --remat P` fp32 for P in none, full, dots_saveable, one
+    epoch on the first `frames` frames of the shard with LiDAR sweeps, #3
+    once per step; each step's losses and the trained model's running stats
+    against none's within phase 26's tolerances (losses 1e-4, stats 1e-4,
+    relative above 1: the card's step does not repeat bit for bit), ms/step
+    and the peak above the phase's start. Then `train_entry` bf16 under each
+    policy from seed 0: the first step's losses and running stats against
+    none's (same tolerances), the median of 3 more steps and the peak."""
+    from veon_tpu_torch.cli import main as cli_mod
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import train_entry
+
+    pkl = train_shard(root, frames)
+    base = ["--preset", "veon_b", "--data-root", root, "--ann", pkl, "--workers", "2",
+            "--epochs", "1"]
+    res, runs, launches_sorted2 = {"cli": {}, "bf16": {}}, {}, 0
+    orig = cli_mod.make_train_step
+    for pol in REMAT_POLICIES:
+        work = tempfile.mkdtemp(prefix="veon_remat", dir=root)
+        models = []
+        cli_mod.make_train_step = lambda model, *a, **k: (models.append(model),
+                                                          orig(model, *a, **k))[1]
+        start = phase_base()
+        try:
+            with step_probe("make_train_step", peaks=True) as probe:
+                out, _o, s, launches = run_cli(["train", *base, "--remat", pol, "--work-dir",
+                                                work])
+        finally:
+            cli_mod.make_train_step = orig
+            shutil.rmtree(work, ignore_errors=True)
+        want = {k: int(k == "bev_pool_sorted2") for k in launches}
+        for i, got in enumerate(probe.launches):
+            expect_launches(got, want, f"train --remat {pol} step {i + 1}")
+        launches_sorted2 += launches["bev_pool_sorted2"]
+        model = models[-1]
+        if model.remat != {"none": False, "full": True}.get(pol, pol) or out["step"] != frames:
+            raise AssertionError(f"train --remat {pol}: model.remat {model.remat}, {out}")
+        runs[pol] = dict(losses=probe.losses, buffers={n: b.detach().cpu().clone()
+                                                       for n, b in model.named_buffers()})
+        peak = max(probe.peaks) - start
+        res["cli"][pol] = dict(step_ms=probe.ms, peak_bytes=peak, losses=probe.losses, s=s)
+        del model, models
+        log(f"train --preset veon_b --remat {pol} fp32 ({frames} frames): step ms "
+            f"{[round(t, 3) for t in probe.ms]}, peak above the phase's start "
+            f"{peak / 2**30:.3f} GiB, losses {probe.losses[-1]}")
+    for pol in REMAT_POLICIES[1:]:
+        res["cli"][pol]["vs_none"] = _agree(runs["none"], runs[pol], f"train --remat {pol}")
+
+    cfg = presets.veon_b(compute_dtype="bfloat16")
+    first = {}
+    for pol in REMAT_POLICIES:
+        start = phase_base()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, batch = train_entry(cfg, seed=0, remat=cli_mod.parse_policy(pol))
+        kernels = reset_launches()
+        ms = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses = trainer(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                first[pol] = dict(losses=[{k: float(v) for k, v in losses.items()}],
+                                  buffers={n: b.detach().cpu().clone()
+                                           for n, b in trainer.model.named_buffers()})
+        peak = torch.cuda.max_memory_allocated() - start
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        expect_launches(launches, {k: 4 * int(k == "bev_pool_sorted2") for k in launches},
+                        f"train_entry bf16 remat {pol}")
+        launches_sorted2 += 4
+        del trainer, batch
+        res["bf16"][pol] = dict(step_ms=ms, warm_ms=statistics.median(ms[1:]), peak_bytes=peak)
+        log(f"train_entry veon_b bf16 remat {pol}: step ms {[round(t, 3) for t in ms]}, warm "
+            f"median {statistics.median(ms[1:]):.3f} ms, peak above the phase's start "
+            f"{peak / 2**30:.3f} GiB")
+    for pol in REMAT_POLICIES[1:]:
+        res["bf16"][pol]["vs_none"] = _agree(first["none"], first[pol],
+                                             f"train_entry bf16 remat {pol}")
+    res["launches_sorted2"] = launches_sorted2
+    return res
+
+
+def _agree(want, got, what):
+    """Losses (step by step) and running stats of two runs within phase 26's
+    tolerances (1e-4, relative above 1); the differences."""
+    loss = max(abs(g[k] - v) / max(abs(v), 1.0) for w, g in zip(want["losses"], got["losses"])
+               for k, v in w.items())
+    stats = max(((got["buffers"][n].float() - v.float()).abs()
+                 / v.float().abs().clamp_min(1.0)).max().item()
+                for n, v in want["buffers"].items())
+    if len(want["losses"]) != len(got["losses"]) or not (loss <= 1e-4 and stats <= 1e-4):
+        raise AssertionError(f"{what} vs none: losses off by {loss:.3g}, running stats by "
+                             f"{stats:.3g} (tolerance 1e-4)")
+    log(f"{what} vs none: losses within {loss:.3g}, running stats within {stats:.3g}")
+    return dict(loss=loss, stats=stats)
+
+
+def rec_options(cfg):
+    """cfg with REC_CROSS_ATTN=False and the bilinear rec-bias downsample."""
+    return dataclasses.replace(cfg, san=dataclasses.replace(
+        cfg.san, rec_cross_attn=False, rec_downsample_method="bilinear"))
+
+
+def rec_options_phase():
+    """Phase 36, REC_CROSS_ATTN=False with the bilinear rec downsample: the
+    tiny preset card vs CPU (phase 5's checks), then a main path at full
+    VEON-B width in bf16 through `entry` (phase 6's: 3 frames, kernel #1
+    once per frame), the rec head's mask embeddings finite with unit norm
+    (1e-2 in bf16), and the dense mask's bytes as the rec head builds it."""
+    from veon_tpu_torch.configs import presets
+
+    small = small_parity_phase(rec_options(presets.veon_tiny_test()))
+    server, (imgs, depth_imgs), res = main_path(rec_options(presets.veon_b(
+        compute_dtype="bfloat16")))
+    embs, masks = [], []
+    from veon_tpu_torch.nn import vit
+
+    build = vit.rec_self_attn_mask
+    vit.rec_self_attn_mask = lambda b: masks.append(build(b)) or masks[-1]
+    h = server.model.rec_head.register_forward_hook(lambda _m, _a, o: embs.append(o))
+    try:
+        server.outputs(imgs, depth_imgs)
+    finally:
+        h.remove()
+        vit.rec_self_attn_mask = build
+    e = embs[-1].float()
+    norm = torch.linalg.vector_norm(e, dim=-1)
+    if not (torch.isfinite(e).all() and (norm - 1).abs().max() < 1e-2):
+        raise AssertionError(f"self-attention rec head: embeddings finite "
+                             f"{bool(torch.isfinite(e).all())}, norm {norm.min()}..{norm.max()}")
+    m = masks[-1]
+    res.update(small=small, emb_shape=tuple(e.shape), norm_err=float((norm - 1).abs().max()),
+               mask_shape=tuple(m.shape), mask_bytes=m.numel() * m.element_size())
+    log(f"REC_CROSS_ATTN=False + bilinear, veon_b bf16: mask embeddings {tuple(e.shape)} finite, "
+        f"|norm - 1| <= {res['norm_err']:.3g}; the dense mask {tuple(m.shape)} {m.dtype}, "
+        f"{res['mask_bytes']} B")
+    del server
+    return res
+
+
+def profiling_phase():
+    """Phase 37, the profiling tools on the card: `lift_microbench` at the
+    JAX microbench's VEON-B lift shapes (the full-frustum lift, kernel #2
+    once per call: 5 warm-up + 10 timed), `flops` of the F=1 bf16 forward
+    (`entry`), a Chrome trace of one frame written by `trace` and parsed:
+    its device kernel events and their time beside the host's."""
+    from veon_tpu_torch.entry import entry
+    from veon_tpu_torch.utils import profiling
+
+    kernels = reset_launches()
+    bench = profiling.lift_microbench(n_iters=10)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(launches, {k: 15 * int(k == "bev_pool_sorted") for k in launches},
+                    "lift_microbench")
+    server, (imgs, depth_imgs) = entry(seed=0)
+    fl = profiling.flops(server.model.full_forward, imgs, depth_imgs, server.metas,
+                         server.ov_weight)
+    server(imgs, depth_imgs)  # warm
+    d = tempfile.mkdtemp(prefix="veon_trace")
+    try:
+        t = time.perf_counter()
+        with profiling.trace(d) as path:
+            server(imgs, depth_imgs)
+        host_ms = (time.perf_counter() - t) * 1e3
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    dev = [e for e in events if e.get("cat") == "kernel"]
+    dev_ms = sum(e.get("dur", 0) for e in dev) / 1e3
+    pooled = sum(1 for e in dev if "bev_pool_pooled" in e.get("name", ""))
+    if not dev or pooled != 1 or not fl["flops"] > 0:
+        raise AssertionError(f"trace: {len(dev)} device kernels, #1 in it {pooled} times; "
+                             f"flops {fl['flops']}")
+    top = sorted(fl["by_op"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"lift_microbench veon_b shapes fp32: {bench['ms_per_iter']:.3f} ms/iter "
+        f"({bench['fps']:.1f} /s), launches {launches}; flops of the F=1 bf16 forward "
+        f"{fl['flops']:.4g} (matmuls, convolutions, attention: {top}); trace of one frame "
+        f"{trace_bytes} B, {len(dev)} device kernels, {dev_ms:.3f} ms of kernel time in "
+        f"{host_ms:.3f} ms on the host, #1 once")
+    del server
+    return dict(lift_microbench=bench, launches=launches, flops=fl["flops"], flops_by_op=top,
+                trace_bytes=trace_bytes, trace_kernels=len(dev), trace_kernel_ms=dev_ms,
+                trace_host_ms=host_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3563,12 +4123,19 @@ def main():
     metrics = metrics_phase(grid)
     weights_tiny = weights_tiny_phase()
     lap("13-14 metrics, tiny weights")
-    variables, weights = weights_main_path(main_res["median_ms"])
-    new_presets = presets_phase(main_res["median_ms"])
-    lap("15-16 weights, presets")
-    precision = precision_phase(variables)
-    lap("17 precision")
-    del variables
+    ckpt_root = tempfile.mkdtemp(prefix="veon_b_ckpts")
+    try:
+        variables, weights = weights_main_path(main_res["median_ms"], ckpt_root)
+        new_presets = presets_phase(main_res["median_ms"])
+        lap("15-16 weights, presets")
+        precision = precision_phase(variables)
+        lap("17 precision")
+        del variables
+        gc.collect()
+        parity = parity_phase(ckpt_root)
+        lap("33 parity")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     zoe_tiny = small_parity_phase(with_tiny_zoe(presets.veon_tiny_test()))
@@ -3594,13 +4161,13 @@ def main():
         data_plane = data_plane_phase(shard)
         lap("18 data plane")
         eval_tiny = eval_tiny_parity_phase(shard)
-        eval_loop = eval_loop_phase(shard)
+        eval_loop = eval_loop_phase(shard, frames=4)
         lap("19 eval loop")
         zoe_eval = zoe_eval_phase(shard)
         lap("25 zoe eval")
         stages = train_stages_parity_phase(shard)
         lap("26 training parity")
-        train_cli = train_cli_phase(shard)
+        train_cli = train_cli_phase(shard, frames=2)
         lap("27 train CLI")
         pretrain = {"veon_b": pretrain_cli_phase(shard, "veon_b", 4),
                     "veon_b_zoe": pretrain_cli_phase(shard, "veon_b_zoe", 2)}
@@ -3609,12 +4176,20 @@ def main():
         lap("29 overfit")
         temporal_train_small = temporal_train_parity_phase()
         lap("30 temporal parity")
-        temporal_cli = temporal_cli_phase(shard)
+        temporal_cli = temporal_cli_phase(shard, frames=2)
         lap("31 temporal CLI")
         data_parallel = data_parallel_phase(shard)
         lap("32 data parallel")
+        vis = vis_phase(shard)
+        lap("34 vis")
+        remat = remat_phase(shard)
+        lap("35 remat")
     finally:
         shutil.rmtree(shard, ignore_errors=True)
+    rec_opts = rec_options_phase()
+    lap("36 rec options")
+    prof = profiling_phase()
+    lap("37 profiling")
 
     # launches on the main paths: the F=1 frames, the requests served from
     # converted weights and the new presets' frames, the zoe frames, calls
@@ -3622,16 +4197,20 @@ def main():
     # drills' forwards and the eval loops' frames, zoe's included, the CLI
     # train steps and the frames of `test` on their checkpoints, the
     # temporal train steps (F per step), the data-parallel steps (#3); the
-    # F=2 full-frustum temporal step (#2)
+    # F=2 full-frustum temporal step (#2); phases 33-37: the parity, vis and
+    # train --remat runs (#3), the REC_CROSS_ATTN=False frames (#1), the
+    # lift microbench's calls (#2)
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
                                 + sum(weights["launches_per_request"])
                                 + new_presets["launches"]["bev_pool_pooled"]
                                 + zoe_f1["launches"]["bev_pool_pooled"]
                                 + zoe_t2["launches"]["bev_pool_pooled"]
-                                + zoe_weights["launches_pooled"]),
+                                + zoe_weights["launches_pooled"]
+                                + rec_opts["launches"]["bev_pool_pooled"]),
             "bev_pool_sorted": (sorted_res["full_bf16"],
                                 train["full"]["launches"]["bev_pool_sorted"]
-                                + temporal_cli["launches_sorted"]),
+                                + temporal_cli["launches_sorted"]
+                                + prof["launches"]["bev_pool_sorted"]),
             "bev_pool_sorted2": (sorted_res["band_spray_bf16"],
                                  train["banded"]["launches"]["bev_pool_sorted2"]
                                  + weights["drill_launches"]["bev_pool_sorted2"]
@@ -3640,7 +4219,9 @@ def main():
                                  + zoe_eval["launches"]["bev_pool_sorted2"]
                                  + train_cli["launches_sorted2"]
                                  + temporal_cli["launches_sorted2"]
-                                 + data_parallel["launches_sorted2"]),
+                                 + data_parallel["launches_sorted2"]
+                                 + parity["launches_sorted2"] + vis["launches_sorted2"]
+                                 + remat["launches_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
                          + temporal["launches"]["ln_dense"])}
@@ -3667,6 +4248,8 @@ def main():
                    "pretrain_cli": pretrain, "overfit": overfit,
                    "temporal_train_parity": temporal_train_small,
                    "temporal_cli": temporal_cli, "data_parallel": data_parallel,
+                   "parity": parity, "vis": vis, "remat": remat, "rec_options": rec_opts,
+                   "profiling": prof,
                    "builds": {k: v["seconds"] for k, v in builds.items()}, "phase_s": laps,
                    "script_s": time.perf_counter() - script_t0},
                   f, indent=1)

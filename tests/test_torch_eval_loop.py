@@ -19,8 +19,8 @@ config it built, which is what it would compute again.
   (`test_torch_slice.py`), idempotent.
 - `benchmark --eval` at the tiny preset: every leg positive, the last line
   one JSON record.
-- The refusals that remain: camera-sharded training and remat policies,
-  the live-model and artifact benchmarks.
+- The refusals that remain: camera-sharded training, JAX's remat policy
+  factories, the live-model and artifact benchmarks.
 """
 
 import dataclasses
@@ -203,13 +203,16 @@ def test_benchmark_eval_tiny_all_legs(monkeypatch, tmp_path, capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
 
 
-@pytest.mark.parametrize("argv, item", [
-    pytest.param(["train", "--cam-shards", "2"], "item 16", id="argv0-item 16"),
-    pytest.param(["train", "--remat", "none"], "item 11a", id="argv3-item 11a"),
-    pytest.param(["benchmark"], "item 23", id="argv5-item 23"),
-    pytest.param(["benchmark", "--eval", "--artifact", "x.stablehlo"], "item 21",
-                 id="argv6-item 21"),
+@pytest.mark.parametrize("argv, error, item", [
+    pytest.param(["train", "--cam-shards", "2"], NotImplementedError, "item 16",
+                 id="argv0-item 16"),
+    # remat policies are ported (item 11a); JAX's policy factories stay refused
+    pytest.param(["train", "--remat", "save_only_these_names"], ValueError, "factory",
+                 id="argv3-item 11a"),
+    pytest.param(["benchmark"], NotImplementedError, "item 23", id="argv5-item 23"),
+    pytest.param(["benchmark", "--eval", "--artifact", "x.stablehlo"], NotImplementedError,
+                 "item 21", id="argv6-item 21"),
 ])
-def test_cli_refuses_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_cli_refuses_what_is_not_ported(argv, error, item):
+    with pytest.raises(error, match=item):
         pcli.main(argv + ["--device", "cpu"])

@@ -17,9 +17,9 @@ fixture of `test_data_pipeline.py`:
 - the CLI end to end with --device cpu: `pretrain-depth` (a tiny DA-V2 and
   a tiny zoe preset) writes a checkpoint, `train --epochs 1`, then
   `--epochs 2 --auto-resume` runs epoch 2 alone, `publish`, `test --ckpt`
-  and `test --all-ckpts --sweep-from/--sweep-to`; the refusals, each
-  naming its ROADMAP item, and JAX's error for --dist-num-processes 2
-  without a coordinator.
+  and `test --all-ckpts --sweep-from/--sweep-to`; the refusals (--cam-shards
+  naming its ROADMAP item, a remat policy factory), and JAX's error for
+  --dist-num-processes 2 without a coordinator.
 
 The tiny presets are registered on both sides with monkeypatch, for the
 test only."""
@@ -487,7 +487,9 @@ def test_train_cli_accumulates_and_truncates_frames(shard, tiny_presets, tmp_pat
 @pytest.mark.parametrize("argv, exc, match", [
     pytest.param(["train", "--cam-shards", "2"], NotImplementedError, "item 16",
                  id="argv0-item 16"),
-    pytest.param(["train", "--remat", "dots_saveable"], NotImplementedError, "item 11a",
+    # remat policies are ported (item 11a, `test_torch_remat.py`); JAX's
+    # policy factories stay refused before anything is built
+    pytest.param(["train", "--remat", "save_only_these_names"], ValueError, "factory",
                  id="argv3-item 11a"),
     # multi-process and temporal training run (test_torch_distributed.py,
     # test_torch_temporal_train.py); a world size without a coordinator

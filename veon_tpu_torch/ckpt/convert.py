@@ -22,12 +22,14 @@ for leaf. Layout rules:
 The port's depth towers carry no adapters: `merge_lora` folds a depth-
 pretrain dump's into the base kernels (scale lora_alpha / r).
 
-`revise_keys`, `merge_params` and `fuse_conv_bn` are kept only as
-counterparts of the JAX module's, held equal to them by
-`tests/test_torch_convert.py`; no port command calls them. The port merges
-converted families into a seeded model with `from_jax.load_families`
-(`cli/main.py` `checkpoint_model`), not with `merge_params`; `fuse_conv_bn`
-serves the `test --fuse-conv-bn` command, which is not ported yet.
+`revise_keys`, `merge_params` and `fuse_conv_bn` are the JAX module's
+counterparts, held equal to them by `tests/test_torch_convert.py`. The
+port merges converted semantic families into a seeded model with
+`from_jax.load_families` (`cli/main.py` `checkpoint_model`); `merge_params`
+merges a depth dump over the seeded stage-1 tower (`cmd_pretrain_depth`)
+and the SAN families here; `fuse_conv_bn` folds the BatchNorms for `test
+--fuse-conv-bn` (`cli/main.py` `fuse_model_conv_bn`); `revise_keys` has no
+caller in the port.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """Command line of the port (counterpart of `veon_tpu/cli/main.py`): the
 `serve`, `selftest`, `train` (stage 2), `pretrain-depth` (stage 1),
 `publish`, `test` (Occ3D mIoU of the model or of training checkpoints, or
-POP-3D retrieval AP with --retrieval), `cache-depth`, `create-infos` and
-`benchmark --eval` subcommands. `text_classifier`, the counterpart of the reference's
+POP-3D retrieval AP with --retrieval), `cache-depth`, `create-infos`,
+`benchmark --eval`, `parity` (weights day: a reference dump replayed
+boundary by boundary) and `vis` (occupancy images, point cloud, semantic
+overlays) subcommands. `text_classifier`, the counterpart of the reference's
 `_text_classifier`, lives in `nn/text.py` and is re-exported here.
 
     python -m veon_tpu_torch.cli.main serve --preset veon_b \
@@ -16,7 +18,7 @@ POP-3D retrieval AP with --retrieval), `cache-depth`, `create-infos` and
     python -m veon_tpu_torch.cli.main train --preset veon_b --work-dir w2 \
         [--load-from SAN.pth --depth-load-from depth.pth] [--auto-resume] \
         [--accum-steps 2] [--depth-cache data/nuscenes/depth_cache/...] \
-        [--num-temporal 2 --temporal-start-epoch 1] \
+        [--num-temporal 2 --temporal-start-epoch 1] [--remat none|full|dots_saveable] \
         [--dist-coordinator host:port --dist-num-processes 2 --dist-process-id 0]
     python -m veon_tpu_torch.cli.main publish --ckpt w2/step_N \
         --out-prefix veon_b_epoch24 [--ema]
@@ -30,6 +32,10 @@ POP-3D retrieval AP with --retrieval), `cache-depth`, `create-infos` and
     python -m veon_tpu_torch.cli.main create-infos --data-root data/nuscenes \
         [--version v1.0-trainval] [--val-scenes val.txt] [--out-prefix ...]
     python -m veon_tpu_torch.cli.main benchmark --eval [--frames 12]
+    python -m veon_tpu_torch.cli.main parity --dumps dump_dir \
+        [--weights-dir ckpts/ | --load-from SAN.pth --depth-load-from depth.pth]
+    python -m veon_tpu_torch.cli.main vis --work-dir vis_out \
+        [--ann data/nuscenes/bevdetv2-nuscenes_infos_val.pkl --data-root data/nuscenes]
 
 Every command that runs the model runs on the card unless --device cpu.
 
@@ -47,9 +53,11 @@ Training writes `<work-dir>/step_<n>/` checkpoints (`ckpt/io.py`); `test
 --ckpt` loads one over the model, strict on both sides. `train` runs
 data-parallel with one process per card (`train/distributed.py`: the
 --dist-* options, or torchrun's variables); rank 0 alone writes the work
-dir. Still refused, each naming its ROADMAP item: --cam-shards > 1 (16),
---remat policies (11a), the live-model and exported-artifact benchmarks
-(23, 21).
+dir; --remat recomputes the scan-stacked blocks in the backward (full, the
+default, as the reference's `torch.utils.checkpoint`), none, or saves what
+a named policy says (`nn/rematutil.py`). `parity` exits 1 on a failed
+boundary. Still refused, each naming its ROADMAP item: --cam-shards > 1
+(16), the live-model and exported-artifact benchmarks (23, 21).
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ from ..model.veon import fused_classes
 from ..nn import text as text_mod
 from ..nn.dpt import DepthAnythingV2
 from ..nn.layers import init_random_
+from ..nn.rematutil import check_policy, parse_policy
 from ..nn.text import text_classifier  # noqa: F401  (the CLI's `_text_classifier`)
 from ..nn.zoedepth import ZoeDepthNK
 from ..serve.server import TensorServer
@@ -127,7 +136,7 @@ def load_checkpoints(cfg, san_ckpt=None, depth_ckpt=None):
     return ({"params": params, "batch_stats": stats} if params else None), extras
 
 
-def checkpoint_model(cfg, variables, device="cuda", seed: int = 0):
+def checkpoint_model(cfg, variables, device="cuda", seed: int = 0, remat=False):
     """The model on `device` as the reference's CLI builds it from its
     checkpoints: a seeded init with each converted family of `variables`
     (`load_checkpoints`) loaded over it, strict on both sides within the
@@ -135,24 +144,28 @@ def checkpoint_model(cfg, variables, device="cuda", seed: int = 0):
     converted families into the init tree); seeded alone without
     variables. Only this route fills a partial tree: the entry points load
     a whole tree strictly."""
-    model = build_model(cfg, resolve_device(device), seed, None)
+    model = build_model(cfg, resolve_device(device), seed, None, remat)
     if variables is not None:
         load_families(model, variables)
     return model
 
 
 def build_model_and_params(cfg, san_ckpt=None, depth_ckpt=None, bpe_path=None, device="cuda",
-                           seed: int = 0):
+                           seed: int = 0, train: bool = False, remat_policy=None):
     """(model, text tower, open-vocabulary weight, merge matrix, extras)
     (counterpart of `_build_model_and_params`): the checkpoints converted
     and loaded family by family (`checkpoint_model`), the rest seeded; the
     classifier from the checkpoint's text tower, bg_embed and logit_scale,
     with the reference's refusals (no BPE merges, another vocabulary size),
-    else the placeholder N(0, 1) of default_rng(0)."""
+    else the placeholder N(0, 1) of default_rng(0). A training build
+    recomputes its blocks in the backward (`remat_policy`: True, False or
+    a policy name; None is True); an eval build never does."""
+    remat = remat_policy if (train and remat_policy is not None) else train
     variables, extras = load_checkpoints(cfg, san_ckpt, depth_ckpt)
     model, tower, ovw, membership = serving_model(
         cfg, device, seed, None, extras.get("text_tower"), extras.get("bg_embed"),
-        extras.get("logit_scale"), bpe_path, checkpoint_model(cfg, variables, device, seed))
+        extras.get("logit_scale"), bpe_path,
+        checkpoint_model(cfg, variables, device, seed, remat))
     return model, tower, ovw, membership, extras
 
 
@@ -426,15 +439,13 @@ def cmd_cache_depth(args):
 
 
 def refuse_unported_training(args):
-    """The `train` options that are not ported, each refused naming its
-    ROADMAP item before anything is built."""
+    """The `train` options that are not ported, each refused before
+    anything is built: --cam-shards > 1 naming its ROADMAP item, a --remat
+    that names no policy the port has (ValueError, `rematutil.check_policy`)."""
     if args.cam_shards > 1:
         raise NotImplementedError("camera-sharded training (--cam-shards > 1) is not ported "
                                   "yet: ROADMAP Queue 1 item 16")
-    if args.remat != "full":
-        raise NotImplementedError(f"--remat {args.remat}: remat policies are not ported (the "
-                                  "stage-2 step fits the card without recompute): ROADMAP "
-                                  "Queue 1 item 11a")
+    check_policy(parse_policy(args.remat))
 
 
 def cmd_train(args):
@@ -446,7 +457,8 @@ def cmd_train(args):
     and with --auto-resume the latest of them restored and only the epochs
     after it run. With --num-temporal F the epochs from
     --temporal-start-epoch on train on F frames, those before it on the
-    current frame. With --dist-* (or torchrun's variables) each process
+    current frame. --remat picks what the backward recomputes. With
+    --dist-* (or torchrun's variables) each process
     trains on its shard of the data on its own card, in lockstep
     (`train/distributed.py`); rank 0 prints the param table and writes the
     checkpoints and the log. Scalars go to <work-dir>/train.log.jsonl every
@@ -465,7 +477,8 @@ def _train(args):
     rank, count = process_shard()
     cfg = build_cfg(args)
     model, _tower, ovw, membership, _extras = build_model_and_params(
-        cfg, args.load_from, args.depth_load_from, args.bpe_path, device=args.device)
+        cfg, args.load_from, args.depth_load_from, args.bpe_path, device=args.device,
+        train=True, remat_policy=parse_policy(args.remat))
     broadcast_state(model)
     if rank == 0:
         print(param_table(model, stage2_trainable))
@@ -608,13 +621,106 @@ def cmd_benchmark(args):
                           pipeline=args.pipeline, device=args.device)
 
 
+def cmd_parity(args):
+    """Weights-day activation parity (counterpart of `cmd_parity`): a
+    reference dump directory (written by the JAX package's standalone
+    `parity/dump_reference.py` inside the reference's torch environment)
+    replayed through the converted-weight model, every module boundary
+    checked within its tolerance (`parity/compare.py`; reference
+    boundaries `san_in_veon_temporal.py:113-218`). Prints the table, the
+    dump's bytes, the compare's seconds and the process's peak host
+    memory; exits 1 on any failed boundary. Returns the rows."""
+    import resource
+
+    from ..parity.compare import compare_dumps, format_report
+
+    if not args.dumps:
+        raise SystemExit("parity needs --dumps <dir> (see veon_tpu/parity/dump_reference.py for "
+                         "producing one in the reference environment)")
+    cfg = build_cfg(args)
+    if args.weights_dir:
+        paths = resolve_weights_dir(args.weights_dir, args.preset)
+        san, depth = paths["san"], paths["depth"]
+        bpe = args.bpe_path or paths.get("bpe")
+    else:
+        san, depth, bpe = args.load_from, args.depth_load_from, args.bpe_path
+    model, _tower, _ovw, _membership, _extras = build_model_and_params(
+        cfg, san, depth, bpe, device=args.device)
+    if not san:
+        print("WARNING: no --weights-dir/--load-from — comparing against RANDOM init "
+              "(harness smoke only, boundaries WILL fail)")
+    nbytes = sum(os.path.getsize(os.path.join(args.dumps, f)) for f in os.listdir(args.dumps))
+    t = time.perf_counter()
+    rows = compare_dumps(args.dumps, model, num_cams=cfg.data.num_cams)
+    seconds = time.perf_counter() - t
+    print(format_report(rows))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    print(f"dump {nbytes} bytes; compare {seconds:.3f} s; peak host memory of the process "
+          f"{peak / 2**30:.3f} GiB")
+    if any(r["ok"] is False for r in rows):
+        raise SystemExit(1)
+    return rows
+
+
+def cmd_vis(args):
+    """Occupancy visualization (counterpart of `cmd_vis`;
+    `san_in_veon_entry_temporal.py:172-241` visualize and the BEV images of
+    `nuscenes_dataset_occ.py:88-108`): the first sample of --ann when it is
+    readable, else the synthetic batch, through the full forward, the
+    vocabulary merge and the fusion rule; writes occ_bev.png,
+    occ_slices.png, occ_points.ply / .npy (one point per non-free voxel)
+    and semseg_cam<n>.png per camera to --work-dir. Returns the paths."""
+    from ..utils.vis import (denormalize_clipsan, save_png, semseg_overlay, vis_occ_bev,
+                             vis_occ_height_slices, vis_occ_pointcloud)
+
+    cfg = build_cfg(args)
+    model, _tower, ovw, membership, _extras = build_model_and_params(
+        cfg, args.load_from, args.depth_load_from, args.bpe_path, device=args.device)
+    dev = ovw.device
+    if os.path.exists(args.ann):
+        ds = NuScenesOccDataset(
+            infos=load_infos(args.ann), data_cfg=cfg.data, grid=cfg.grid,
+            num_temporal=cfg.num_temporal, is_train=False, data_root=args.data_root,
+            load_lidar_depth=False, raw_uint8=False)  # floats: the overlays denormalize
+        batch = next(iter(DataLoader(ds, batch_size=1, shuffle=False, num_workers=1,
+                                     drop_last=False)))
+        imgs, depth_imgs, metas = (_to_device(batch[k], dev)
+                                   for k in ("imgs", "depth_imgs", "metas"))
+    else:
+        imgs, depth_imgs, metas = example_batch_full(cfg, device=dev)
+    with torch.no_grad():
+        out = model.full_forward(imgs, depth_imgs, metas, ovw)
+        pred = fused_classes(out, membership).cpu().numpy()
+    sem_seg = out["sem_seg_ds"].cpu().numpy()
+    os.makedirs(args.work_dir, exist_ok=True)
+    paths = {k: os.path.join(args.work_dir, f) for k, f in (
+        ("bev", "occ_bev.png"), ("slices", "occ_slices.png"), ("ply", "occ_points.ply"),
+        ("npy", "occ_points.npy"))}
+    save_png(paths["bev"], vis_occ_bev(pred[0]))
+    save_png(paths["slices"], vis_occ_height_slices(pred[0]))
+    g = cfg.grid
+    verts = vis_occ_pointcloud(pred[0], grid_range=(g.x[:2], g.y[:2], g.z[:2]),
+                               ply_path=paths["ply"], npy_path=paths["npy"])
+    img0 = imgs[0, 0].cpu().numpy()  # (N, H, W, 3), the current frame
+    paths["semseg"] = []
+    for n in range(img0.shape[0]):
+        ov = semseg_overlay(denormalize_clipsan(img0[n]), np.argmax(sem_seg[0, n], axis=-1),
+                            num_classes=sem_seg.shape[-1])
+        paths["semseg"].append(os.path.join(args.work_dir, f"semseg_cam{n}.png"))
+        save_png(paths["semseg"][-1], ov)
+    print("wrote", paths["bev"], ",", paths["slices"], f", occ_points.ply ({len(verts)} voxels)",
+          f"and {img0.shape[0]} semseg overlays in", args.work_dir)
+    return paths
+
+
 COMMANDS = {"serve": cmd_serve, "selftest": cmd_selftest, "train": cmd_train,
             "pretrain-depth": cmd_pretrain_depth, "publish": cmd_publish, "test": cmd_test,
             "cache-depth": cmd_cache_depth, "create-infos": cmd_create_infos,
-            "benchmark": cmd_benchmark}
+            "benchmark": cmd_benchmark, "parity": cmd_parity, "vis": cmd_vis}
 _TRAIN = ("train", "pretrain-depth")
-_MODEL = ("serve", "selftest", "test", "cache-depth", "benchmark") + _TRAIN
-_FRAMES = ("serve", "selftest", "test", "train")  # the commands whose model takes frame counts and text
+_MODEL = ("serve", "selftest", "test", "cache-depth", "benchmark", "parity", "vis") + _TRAIN
+# the commands whose model takes frame counts and text
+_FRAMES = ("serve", "selftest", "test", "train", "parity", "vis")
 _DATA = ("test", "cache-depth") + _TRAIN
 # (flags, argparse keywords, the subcommands that take the option); names
 # and defaults are the reference CLI's
@@ -626,9 +732,12 @@ OPTIONS = (
     (("--device",), dict(default="cuda", help="cuda, or cpu for the plain versions"), _MODEL),
     (("--bpe-path",), dict(default=None, help="CLIP bpe_simple_vocab_16e6.txt.gz for exact "
                                               "tokenization"), _FRAMES),
-    (("--weights-dir",), dict(default=None, help="reference-README ckpts/ layout: runs the "
-                              "weights-arrival drill (convert + load + forward + tiny mIoU)"),
-     ("selftest",)),
+    (("--weights-dir",), dict(default=None, help="reference-README ckpts/ layout: selftest runs "
+                              "the weights-arrival drill (convert + load + forward + tiny "
+                              "mIoU), parity compares the converted model"),
+     ("selftest", "parity")),
+    (("--dumps",), dict(default=None, help="reference dump directory (inputs.npz, "
+                        "boundaries.npz, manifest.json) from dump_reference.py"), ("parity",)),
     (("--socket",), dict(default="/tmp/veon_serve.sock", help="unix socket path"), ("serve",)),
     (("--raw-uint8",), dict(action="store_true", help="serve: accept raw uint8 RGB frames; "
                             "test / cache-depth / benchmark --eval: the loader ships post-aug "
@@ -637,17 +746,19 @@ OPTIONS = (
     (("--cam-shards",), dict(type=int, default=1, help="not ported: must be 1"),
      ("serve", "train")),
     (("--load-from",), dict(default=None, help="reference SAN/VEON semantic .pth"),
-     ("serve", "test", "train")),
+     ("serve", "test", "train", "parity", "vis")),
     (("--depth-load-from",), dict(default=None, help="reference depth .pth of the preset's "
                                                      "branch: DA-V2, or ZoeDepth-NK for a zoe "
                                                      "preset"),
-     ("serve", "test", "cache-depth") + _TRAIN),
-    (("--data-root",), dict(default="data/nuscenes"), _DATA + ("create-infos",)),
-    (("--ann",), dict(default="data/nuscenes/bevdetv2-nuscenes_infos_train.pkl"), _DATA),
+     ("serve", "test", "cache-depth", "parity", "vis") + _TRAIN),
+    (("--data-root",), dict(default="data/nuscenes"), _DATA + ("create-infos", "vis")),
+    (("--ann",), dict(default="data/nuscenes/bevdetv2-nuscenes_infos_train.pkl"),
+     _DATA + ("vis",)),
     (("--workers",), dict(type=int, default=2, help="loader workers"), _DATA + ("benchmark",)),
     (("--batch-size",), dict(type=int, default=1), ("cache-depth",) + _TRAIN),
     (("--work-dir",), dict(default="work_dir", help="training checkpoints step_<n>/ and "
-                           "train.log.jsonl; test --all-ckpts sweeps it"), ("test",) + _TRAIN),
+                           "train.log.jsonl; test --all-ckpts sweeps it; vis writes its "
+                           "images there"), ("test", "vis") + _TRAIN),
     (("--accum-steps",), dict(type=int, default=1, help="gradient accumulation micro-steps per "
                               "optimizer update (effective batch = batch-size x this)"), _TRAIN),
     (("--lr",), dict(type=float, default=1e-4), _TRAIN),
@@ -658,8 +769,11 @@ OPTIONS = (
                               "--work-dir"), ("train",)),
     (("--temporal-start-epoch",), dict(type=int, default=0, help="epoch at which previous "
                                        "frames engage"), ("train",)),
-    (("--remat",), dict(default="full", help="not ported: must be full (the step needs no "
-                        "recompute on the card)"), ("train",)),
+    (("--remat",), dict(default="full", help="training recompute: full (each scan-stacked "
+                        "block recomputed in the backward, default), none, or a "
+                        "jax.checkpoint_policies name saved from recompute: "
+                        "everything_saveable, dots_saveable, dots_with_no_batch_dims_saveable "
+                        "(nn/rematutil.py)"), ("train",)),
     (("--dist-coordinator",), dict(default=None, help="host:port of process 0 (multi-process "
                                    "training; also read from MASTER_ADDR/MASTER_PORT)"),
      ("train",)),

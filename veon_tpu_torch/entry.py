@@ -61,6 +61,7 @@ from .geometry.frustum import sensor2keyego_chain
 from .model.veon import VeonModel, fused_classes, retrieval_map
 from .nn import text as text_mod
 from .nn.layers import init_random_
+from .nn.rematutil import RematSpec
 from .nn.vit import CLIPTextEncoder
 from .serve.streaming import TemporalSession
 from .train.step import AdamW, TrainState, create_train_state, make_train_step
@@ -108,12 +109,12 @@ def _no_tf32(dev):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def build_model(cfg, dev, seed, variables) -> VeonModel:
+def build_model(cfg, dev, seed, variables, remat: RematSpec = False) -> VeonModel:
     """The model on `dev` with weights from `variables` (a whole JAX
     variables tree as numpy arrays, strict on both sides) when given, else
-    from a seeded random init."""
+    from a seeded random init; `remat` as `nn/rematutil.py` reads it."""
     _no_tf32(dev)
-    model = VeonModel(cfg, device=dev)
+    model = VeonModel(cfg, device=dev, remat=remat)
     if variables is not None:
         load_from_jax(model, variables)
     else:
@@ -204,14 +205,16 @@ def train_batch(cfg: VeonConfig, device="cuda") -> Dict:
 
 
 def train_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
-                variables: Optional[Mapping] = None):
+                variables: Optional[Mapping] = None, remat: RematSpec = False):
     """(trainer, batch) for `cfg` (default: veon_b in bf16): the stage-2
     trainable set (hsa, lift_fusion, alignnet), AdamW with warmup and the
-    EMA from 10,560 updates, as `veon_tpu/train/step.py`."""
+    EMA from 10,560 updates, as `veon_tpu/train/step.py`; `remat` (default
+    none, as `train_bench`'s model) recomputes the scan-stacked blocks in
+    the backward (`nn/rematutil.py`)."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = presets.veon_b(compute_dtype="bfloat16")
-    model = build_model(cfg, dev, seed, variables)
+    model = build_model(cfg, dev, seed, variables, remat)
     _prompts, refl = text_mod.build_vocabulary(cfg.vocabulary)
     membership = text_mod.merge_matrix(refl)
     tx = AdamW()

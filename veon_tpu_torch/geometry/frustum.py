@@ -20,12 +20,18 @@ from ..configs.base import GridConfig
 
 
 def create_frustum(grid: GridConfig, input_size: Tuple[int, int],
-                   downsample: int) -> np.ndarray:
+                   downsample: int, sid: bool = False) -> np.ndarray:
     """(D, Hf, Wf, 3) template of (x_pix, y_pix, depth_m) per frustum point;
-    depth spans the bin lower edges arange(d0, d1, dd)."""
+    depth spans the bin lower edges arange(d0, d1, dd), or with sid=True the
+    Spacing-Increasing Discretization planes (`lift/lss.py`
+    `sid_depth_values`, `view_transformer_raw.py:107-112`)."""
     h_in, w_in = input_size
     hf, wf = h_in // downsample, w_in // downsample
     d = np.arange(grid.depth[0], grid.depth[1], grid.depth[2], dtype=np.float32)
+    if sid:
+        from ..lift.lss import sid_depth_values
+
+        d = sid_depth_values(grid)
     frustum = np.empty((d.shape[0], hf, wf, 3), dtype=np.float32)
     frustum[..., 0] = np.linspace(0, w_in - 1, wf, dtype=np.float32)[None, None, :]
     frustum[..., 1] = np.linspace(0, h_in - 1, hf, dtype=np.float32)[None, :, None]

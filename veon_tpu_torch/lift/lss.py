@@ -1,5 +1,6 @@
 """Lift-Splat-Shoot view transform (counterpart of `veon_tpu/lift/lss.py`):
-`min_pool_depth`, `two_hot_depth`, `one_hot_depth` and
+`min_pool_depth`, `absolute_depth_from_bins`, `sid_depth_values` (the SID
+frustum's planes), `two_hot_depth`, `one_hot_depth` and
 `depth_bins_one_hot_gt` (the stage-1 losses' targets),
 `banded_two_hot(_with_floor)` and
 `LSSLift` with its three lifts:
@@ -7,6 +8,9 @@
   * `lift_from_metric`: K-banded two-hot straight from metric depth plus
     the far-depth spray, ranks from per-pixel rays every call (training);
   * `__call__`: the reference formulation over the whole frustum.
+Every pool routes by its tensors' device: the card's kernels (#1-#3) on
+CUDA tensors, their plain versions on CPU tensors. The plain route is the
+counterpart of JAX's `LSSLift(impl="scan")`, which only JAX's tests use.
 Channel-last throughout."""
 
 from __future__ import annotations
@@ -33,6 +37,28 @@ def min_pool_depth(depth: torch.Tensor, downsample: int) -> torch.Tensor:
     d = depth.reshape(*lead, H // downsample, downsample, W // downsample, downsample)
     d = torch.where(d == 0.0, torch.full_like(d, 1e5), d)
     return d.amin(dim=(-3, -1))
+
+
+def absolute_depth_from_bins(bins: torch.Tensor, grid: GridConfig):
+    """Bin distribution (..., K) -> (expected, hard-argmax) metric depth
+    (`view_transformer_raw.py:376-391` get_absolute_depth), the bin centres
+    arange(K)*dd + (d0 - dd/2); the argmax takes the first of a tie."""
+    d0, _, dd = grid.depth
+    centers = torch.arange(bins.shape[-1], dtype=bins.dtype, device=bins.device) * dd + (
+        d0 - dd / 2)
+    avg = (bins * centers).sum(-1)
+    hard = torch.nn.functional.one_hot(bins.argmax(-1), bins.shape[-1]).to(bins.dtype)
+    return avg, (hard * centers).sum(-1)
+
+
+def sid_depth_values(grid: GridConfig) -> np.ndarray:
+    """Spacing-Increasing Discretization plane depths (sid=True,
+    `view_transformer_raw.py:107-112`): exp(log d0 + i/(D-1) log((d1-1)/d0)),
+    computed in float64, then cast to float32."""
+    D = grid.num_depth_bins
+    d0, d1, _ = grid.depth
+    i = np.arange(D, dtype=np.float64)
+    return np.exp(np.log(d0) + i / (D - 1) * np.log((d1 - 1.0) / d0)).astype(np.float32)
 
 
 def _clamp_gap(gap):

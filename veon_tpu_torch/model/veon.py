@@ -45,6 +45,7 @@ from ..lift.lss import LSSLift, min_pool_depth, two_hot_depth
 from ..nn.alignnet import AlignNet3D, LiftFusion
 from ..nn.dpt import DepthAnythingV2
 from ..nn.hsa import HighresSideAdaptor
+from ..nn.rematutil import RematSpec, check_policy
 from ..nn.san import SideAdapterNetwork
 from ..nn.text import merge_classes_max
 from ..nn.vit import CLIPRecHead, CLIPVisualExtractor
@@ -59,9 +60,12 @@ class VeonModel(nn.Module):
     """End-to-end VEON inference graph. Submodules carry the flax module
     names, so `ckpt/from_jax.py` maps a JAX variables tree onto them."""
 
-    def __init__(self, cfg: VeonConfig, device="cuda"):
+    def __init__(self, cfg: VeonConfig, device="cuda", remat: RematSpec = False):
         super().__init__()
         c = self.cfg = cfg
+        # recompute in the backward (`nn/rematutil.py`): the CLIP trunk, SAN,
+        # rec head, HSA and AlignNet's ResBlocks, one block per region
+        self.remat = check_policy(remat)
         dt = torch_dtype(c.compute_dtype)
         with torch.device(resolve_device(device)):
             if c.depth_mode == "zoedepth":
@@ -77,17 +81,18 @@ class VeonModel(nn.Module):
                 | {c.san.feature_last_layer_idx}))
             self.clip_visual = CLIPVisualExtractor(
                 c.san.clip_width, c.san.clip_heads, c.san.feature_last_layer_idx,
-                c.san.clip_patch_size, c.san.clip_pretrain_grid, save_layers, dtype=dt)
-            self.side_adapter = SideAdapterNetwork(c.san, dtype=dt)
+                c.san.clip_patch_size, c.san.clip_pretrain_grid, save_layers, dtype=dt,
+                remat=remat)
+            self.side_adapter = SideAdapterNetwork(c.san, dtype=dt, remat=remat)
             self.rec_head = CLIPRecHead(
                 c.san.clip_width, c.san.clip_heads, c.san.feature_last_layer_idx,
                 c.san.clip_layers, c.san.clip_embed_dim, c.san.num_queries,
-                c.san.rec_downsample_method, c.san.rec_cross_attn, dtype=dt)
-            self.hsa = HighresSideAdaptor(c.hsa, dtype=dt)
+                c.san.rec_downsample_method, c.san.rec_cross_attn, dtype=dt, remat=remat)
+            self.hsa = HighresSideAdaptor(c.hsa, dtype=dt, remat=remat)
             self.lift_fusion = LiftFusion(c.propagation, c.hsa.manip_supp_dim,
                                           c.san.clip_width, dtype=dt)
             self.alignnet = AlignNet3D(c.propagation, c.propagation.clip_proj_dim,
-                                       c.num_temporal, dtype=dt)
+                                       c.num_temporal, dtype=dt, remat=remat)
         self.lift = LSSLift.from_config(c)
 
     def estimate_depth(self, depth_imgs):

@@ -16,6 +16,7 @@ from torch import nn
 from ..configs.base import PropagationConfig
 from ..ops.grid_sample import grid_sample_3d
 from .layers import BatchNorm, CatFusionLift, Conv3d
+from .rematutil import RematSpec, remat_wrap
 from .vit import stack
 
 
@@ -221,11 +222,13 @@ class TemporalFusion(nn.Module):
 
 class AlignNet3D(nn.Module):
     """Temporal fusion (num_temporal > 1), 3D ResBlocks and the occupancy /
-    CLIP-embedding heads on the lifted voxels."""
+    CLIP-embedding heads on the lifted voxels; each ResBlock is one
+    recomputed region under `remat`."""
 
     def __init__(self, cfg: PropagationConfig, clip_outdim: int, num_temporal: int = 1,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: RematSpec = False):
         super().__init__()
+        self.remat = remat
         if num_temporal > 1:
             self.temporal_fusion = TemporalFusion(cfg.dim, num_temporal - 1, dtype)
         self.res3d = stack(cfg.layer_depth, block=lambda: ResBlock3D(cfg.dim, dtype))
@@ -237,7 +240,7 @@ class AlignNet3D(nn.Module):
         if occ_feat_prevs:
             x = self.temporal_fusion(x, occ_feat_prevs, train)
         for body in self.res3d:
-            x = body["block"](x, train)
+            x = remat_wrap(body["block"], self.remat)(x, train)
         return {"bin_occ": self.occupancy_pred(x, train), "feat_occ": self.feat_pred(x, train)}
 
 

@@ -13,6 +13,7 @@ from torch import nn
 from ..configs.base import HSAConfig
 from ..ops.resize import resize_bilinear, resize_nearest
 from .layers import Conv2d, ConvFFNBlock, Dense, FeedForward, LayerNorm
+from .rematutil import RematSpec, remat_wrap
 from .vit import stack
 
 
@@ -62,9 +63,10 @@ class HighresSideAdaptor(nn.Module):
     """images (B, H, W, 3) + CLIP feats -> (factors (A, B, L, heads, dh),
     supp (B, Hs, Ws, supp_dim))."""
 
-    def __init__(self, cfg: HSAConfig, dtype=torch.float32):
+    def __init__(self, cfg: HSAConfig, dtype=torch.float32, remat: RematSpec = False):
         super().__init__()
         c = self.cfg = cfg
+        self.remat = remat
         ph, pw = c.patch_shape
         self.patch_embed = Conv2d(3, c.dim, (ph, pw), stride=(ph, pw), dtype=dtype)
         self.pre_norm = LayerNorm(c.dim)
@@ -79,6 +81,6 @@ class HighresSideAdaptor(nn.Module):
         gh, gw = H // c.patch_shape[0], W // c.patch_shape[1]
         x = self.pre_norm(self.patch_embed(images).reshape(B, gh * gw, c.dim))
         for body, (_blk, _ca, add_id) in zip(self.hsa_blocks, c.fusion_map):
-            x = body["block"](x, clip_feats[str(add_id)], (gh, gw))
+            x = remat_wrap(body["block"], self.remat)(x, clip_feats[str(add_id)], (gh, gw))
         clip_hw = tuple(clip_feats[str(c.fusion_map[0][1])].shape[1:3])
         return self.rear_block(x, (gh, gw), clip_hw)

@@ -17,6 +17,7 @@ from torch import nn
 
 from .. import collectives
 from ..ops.resize import resize_bilinear
+from .rematutil import move_running_stats, pin_batch_stats
 
 
 def quick_gelu(x):
@@ -139,7 +140,9 @@ class BatchNorm(nn.Module):
     normalises with the same stats. The sync is ambient: it follows the
     process-global default group (`collectives.data_parallel`), not an
     attribute of the layer, so every train-mode BatchNorm syncs while one
-    is open."""
+    is open. In a recomputed block (`nn/rematutil.py`) the stats move once,
+    after the block's forward pass, and the recompute reuses its batch
+    statistics."""
 
     momentum = 0.9
 
@@ -158,16 +161,20 @@ class BatchNorm(nn.Module):
             mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
             if collectives.data_parallel():
                 mean, mean2 = collectives.sync_mean(torch.stack([mean, mean2])).unbind(0)
+            mean, mean2 = pin_batch_stats(mean, mean2)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            move_running_stats(lambda m=mean.detach(), v=var.detach(): self._move(m, v))
         else:
             mean, var = self.running_mean, self.running_var
         scale = self.weight * torch.rsqrt(var + self.eps)
         y = (xf - mean) * scale + self.bias
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _move(self, mean, var):
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
 class LoRADense(nn.Module):

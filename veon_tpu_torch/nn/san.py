@@ -11,6 +11,7 @@ from torch import nn
 from ..configs.base import SANConfig
 from ..ops.resize import resize_bicubic
 from .layers import MLP, AddFusion, Conv2d
+from .rematutil import RematSpec, remat_wrap
 from .vit import TimmBlock, stack
 
 
@@ -48,9 +49,10 @@ class SideAdapterNetwork(nn.Module):
     """RegionwiseSideAdapterNetwork: images (B, H, W, 3) + CLIP feats ->
     (mask_preds (B,Q,h,w), attn_bias (B,heads,Q,h,w), [pix (B,h,w,C)])."""
 
-    def __init__(self, cfg: SANConfig, dtype=torch.float32):
+    def __init__(self, cfg: SANConfig, dtype=torch.float32, remat: RematSpec = False):
         super().__init__()
         c = self.cfg = cfg
+        self.remat = remat
         sw = c.side_width
         self.fusion = dict(c.fusion_map)
         fuse_idxs = sorted(self.fusion)
@@ -90,12 +92,19 @@ class SideAdapterNetwork(nn.Module):
 
         patches = self.fusion_layer_0(x[:, -L:], clip_feats[str(self.fusion[0])], (h, w))
         x = torch.cat([x[:, :-L], patches], 1)
-        for i, body in enumerate(self.fused_blocks):
+
+        def fused(body, x, clip):  # one scan body: block, CLIP fusion, pos re-add
             x = body["block"](x)
-            patches = body["fusion"](x[:, -L:], clip_feats[str(self.fusion[i + 1])], (h, w))
-            x = torch.cat([x[:, :-L], patches], 1) + full_pos
+            patches = body["fusion"](x[:, -L:], clip, (h, w))
+            return torch.cat([x[:, :-L], patches], 1) + full_pos
+
+        def plain(body, x):
+            return body["block"](x) + full_pos
+
+        for i, body in enumerate(self.fused_blocks):
+            x = remat_wrap(fused, self.remat)(body, x, clip_feats[str(self.fusion[i + 1])])
         for body in self.plain_blocks:
-            x = body["block"](x) + full_pos
+            x = remat_wrap(plain, self.remat)(body, x)
         x = self.last_block(x)
         query, pix = x[:, :-L], x[:, -L:].reshape(B, h, w, c.side_width)
         mask_preds, attn_bias = self.mask_decoder(query, pix)

@@ -14,9 +14,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.resize import adaptive_max_pool2d, resize_bicubic, resize_bicubic_scaled
+from ..ops.resize import (adaptive_max_pool2d, resize_bicubic, resize_bicubic_scaled,
+                          resize_bilinear)
 from .attention import FusedQKVAttention, SimpleAttention
 from .layers import Conv2d, Embed, LayerNorm, TransformerMLP, quick_gelu
+from .rematutil import RematSpec, remat_wrap
 
 
 def stack(n: int, **make) -> nn.ModuleList:
@@ -64,15 +66,17 @@ class CLIPBlock(nn.Module):
 
 
 class ScanBlocks(nn.Module):
-    """`length` identical blocks run in sequence (flax ScanBlocks)."""
+    """`length` identical blocks run in sequence (flax ScanBlocks), each
+    block one recomputed region under `remat` (`nn/rematutil.py`)."""
 
-    def __init__(self, length: int, make):
+    def __init__(self, length: int, make, remat: RematSpec = False):
         super().__init__()
         self.blocks = stack(length, block=make)
+        self.remat = remat
 
     def forward(self, x):
         for body in self.blocks:
-            x = body["block"](x)
+            x = remat_wrap(body["block"], self.remat)(x)
         return x
 
 
@@ -82,7 +86,7 @@ class CLIPVisualExtractor(nn.Module):
 
     def __init__(self, width: int, heads: int, num_layers: int, patch_size: int,
                  pretrain_grid: Tuple[int, int], save_layers: Tuple[int, ...] = (),
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: RematSpec = False):
         super().__init__()
         self.width, self.patch_size, self.pretrain_grid = width, patch_size, pretrain_grid
         self.conv1 = Conv2d(3, width, patch_size, stride=patch_size, bias=False, dtype=dtype)
@@ -93,7 +97,7 @@ class CLIPVisualExtractor(nn.Module):
         self.saves = tuple(sorted(set(save_layers) | {0, num_layers}))
         for a, b in zip(self.saves[:-1], self.saves[1:]):
             self.add_module(f"segment_{a}_{b}", ScanBlocks(
-                b - a, lambda: CLIPBlock(width, heads, dtype=dtype)))
+                b - a, lambda: CLIPBlock(width, heads, dtype=dtype), remat))
 
     def forward(self, images) -> Dict[str, torch.Tensor]:
         B, H, W, _ = images.shape
@@ -117,12 +121,17 @@ class CLIPVisualExtractor(nn.Module):
 
 def format_attn_biases(attn_bias, target_hw, num_heads: int, method: str = "max"):
     """SAN attn-bias formatting: (B, Hb, Q, h, w) -> (B, num_heads, Q, Ht*Wt),
-    adaptive-max downsampled, heads broadcast when Hb == 1."""
-    if method != "max":
-        raise NotImplementedError(f"rec downsample {method!r}: only 'max' is ported")
+    the spatial map adaptive-max ("max") or bilinearly ("bilinear",
+    align_corners=False) downsampled, heads broadcast when Hb == 1; another
+    method raises ValueError, as in JAX."""
     B, hb, Q, h, w = attn_bias.shape
     x = attn_bias.reshape(B, hb * Q, h, w).permute(0, 2, 3, 1)
-    x = adaptive_max_pool2d(x, target_hw)
+    if method == "max":
+        x = adaptive_max_pool2d(x, target_hw)
+    elif method == "bilinear":
+        x = resize_bilinear(x, target_hw, align_corners=False)
+    else:
+        raise ValueError(method)
     ht, wt = target_hw
     x = x.permute(0, 3, 1, 2).reshape(B, hb, Q, ht * wt)
     if hb == 1 and num_heads > 1:
@@ -130,22 +139,44 @@ def format_attn_biases(attn_bias, target_hw, num_heads: int, method: str = "max"
     return x
 
 
+def rec_self_attn_mask(bias):
+    """The dense additive mask of REC_CROSS_ATTN=False (`visual.py:240-253`),
+    bias (B, heads, Q, L) -> (B, heads, Q+1+L, Q+1+L) over the joint [sos,
+    cls, pixels] sequence: no token attends to the sos tokens (-100) but
+    each sos to itself (0); the sos tokens do not attend to cls (-100); the
+    sos -> pixel entries carry the SAN bias. -100, not -inf, as the
+    reference. Its bytes: B x heads x (Q+1+L)^2 x the bias's element size
+    (VEON-B on the half-resolution trunk, L = 16 x 44 = 704: 6 x 12 x 805^2
+    x 4 B = 186.6 MB in fp32)."""
+    B, nh, Q, L = bias.shape
+    S = Q + 1 + L
+    base = torch.zeros(S, S, dtype=bias.dtype, device=bias.device)
+    base[:, :Q] = -100.0
+    base[torch.arange(Q), torch.arange(Q)] = 0.0
+    base[:Q, Q] = -100.0
+    top = torch.cat([base[:Q, :Q + 1].expand(B, nh, Q, Q + 1), bias], -1)
+    return torch.cat([top, base[Q:].expand(B, nh, 1 + L, S)], -2)
+
+
 class CLIPRecHead(nn.Module):
-    """CLIP deep trunk with attention bias, REC_CROSS_ATTN mode:
-      * forward(feats, attn_bias) -> normalized mask embeddings (B, Q, out_dim);
+    """CLIP deep trunk with attention bias:
+      * forward(feats, attn_bias) -> normalized mask embeddings (B, Q, out_dim):
+        cross_attn=True (REC_CROSS_ATTN) interleaves the sos cross-attention
+        with the patch trunk; cross_attn=False runs [sos, cls, pixels] as one
+        self-attention sequence under `rec_self_attn_mask`, through the same
+        blocks (one parameter tree, so one checkpoint loads either way);
       * update_remaining(feats, attn_factors) -> feats extended to the last
-        layer plus "clip_feat_proj" (B, h, w, out_dim).
+        layer plus "clip_feat_proj" (B, h, w, out_dim), the same in both modes.
+    Each layer is one recomputed region under `remat`.
     """
 
     def __init__(self, width: int, heads: int, first_layer_idx: int, total_layers: int,
                  out_dim: int, sos_token_num: int = 100, downsample_method: str = "max",
-                 cross_attn: bool = True, dtype=torch.float32):
+                 cross_attn: bool = True, dtype=torch.float32, remat: RematSpec = False):
         super().__init__()
-        if not cross_attn:
-            raise NotImplementedError("REC_CROSS_ATTN=False is not ported")
         self.heads, self.first_layer_idx = heads, first_layer_idx
         self.total_layers, self.sos_token_num = total_layers, sos_token_num
-        self.downsample_method = downsample_method
+        self.downsample_method, self.cross_attn, self.remat = downsample_method, cross_attn, remat
         self.num_blocks = total_layers - first_layer_idx
         self.resblocks = stack(self.num_blocks, block=lambda: CLIPBlock(width, heads, dtype=dtype))
         self.ln_post = LayerNorm(width)
@@ -159,12 +190,21 @@ class CLIPRecHead(nn.Module):
 
     def forward(self, feats: Dict[str, torch.Tensor], attn_bias, normalize: bool = True):
         x, (B, h, w, C) = self._tokens(feats)
-        sos = x[:, :1].expand(B, self.sos_token_num, C)
+        Q = self.sos_token_num
+        sos = x[:, :1].expand(B, Q, C)
         bias = format_attn_biases(attn_bias, (h, w), self.heads, self.downsample_method)
-        for body in self.resblocks:
-            blk = body["block"]
-            sos = blk(sos, attn_mask=bias, mode="cross", mem=x[:, 1:])
-            x = blk(x)
+        if self.cross_attn:
+            def layer(blk, sos, x):
+                return blk(sos, attn_mask=bias, mode="cross", mem=x[:, 1:]), blk(x)
+
+            for body in self.resblocks:
+                sos, x = remat_wrap(layer, self.remat)(body["block"], sos, x)
+        else:
+            mask = rec_self_attn_mask(bias)
+            x = torch.cat([sos, x], 1)
+            for body in self.resblocks:
+                x = remat_wrap(body["block"], self.remat)(x, attn_mask=mask)
+            sos = x[:, :Q]
         sos = self.ln_post(sos)
         sos = sos @ self.proj_kernel.to(sos.dtype)
         if normalize:
@@ -183,7 +223,7 @@ class CLIPRecHead(nn.Module):
             f = None
             if attn_factors is not None:
                 f = torch.nn.functional.pad(attn_factors[i], (0, 0, 0, 0, 1, 0))
-            x = body["block"](x, extra_qk=f)
+            x = remat_wrap(body["block"], self.remat)(x, extra_qk=f)
             idx = self.first_layer_idx + i + 1
             feats[str(idx)] = x[:, 1:].reshape(B, h, w, C)
             feats[f"{idx}_cls"] = x[:, :1]
