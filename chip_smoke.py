@@ -85,7 +85,7 @@ Phases; any failed check raises, so the exit code is non-zero:
      per frame), `--pipeline 2` and `--raw-uint8` (equal grids),
      `--num-temporal 2` (#3 twice per frame), `test --retrieval` on a
      3-item CSV, `cache-depth` on 2 frames (idempotent), and `benchmark
-     --eval` in bf16 over 12 frames, whose JSON line is logged;
+     --eval` in bf16 over 6 frames, whose JSON line is logged;
  20. phase 5 on the ZoeDepth-NK branch (the tiny preset with the JAX
      tests' tiny zoe tower), card vs CPU;
  21. zoe serving, a main path: phase 6 on `presets.veon_b_zoe(
@@ -168,6 +168,21 @@ Phases; any failed check raises, so the exit code is non-zero:
  37. the profiling tools: `lift_microbench` at VEON-B lift shapes (#2 once
      per call), `flops` of the F=1 bf16 forward, a parsed Chrome trace of
      one frame.
+ 38. `export --preset veon_b` (F=1 bf16) through the CLI, a main path: export
+     s, `.pt2` bytes, load s, the graph's kernel #1 node and device copies;
+     the loaded program on the live `FrameServer`'s frame: the class grid
+     equal, kernel #1 once per call; both timed in turns;
+ 39. `export --num-temporal 2` (fp32, the preset's dtype) and with
+     `--raw-uint8`, a main path: 4 drive calls through each program beside
+     a live `TemporalSession`, the cache rolled by hand: outputs equal,
+     kernel #1 once per call; the float program and the live step timed
+     in turns;
+ 40. `benchmark` through the CLI, a main path: live F=1 bf16, `--num-temporal
+     2` bf16, `--artifact` on both programs; the JSON lines and the F=1
+     artifact-to-live ratio (phases 38-39 also time each program in turns
+     with its live module);
+ 41. `serve_exported` of the F=1 program, a main path: 2 requests through
+     `TensorClient`, pred equal to the live grid, kernel #1 once each.
 Phases 11-12 serve through the CLI's handler, which computes in the
 preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
@@ -2098,7 +2113,7 @@ def eval_loop_phase(root, frames=8):
     `--num-temporal 2` (#3 twice per frame), `test --retrieval` on a
     3-item CSV (finite mAP, #3 once per item), `cache-depth` on 2 frames
     (token[:2]/token/token-CAM.npy, idempotent) and `benchmark --eval` in
-    bf16 over 12 frames of its own shard, whose JSON line is logged."""
+    bf16 over 6 frames of its own shard, whose JSON line is logged."""
     pkl = shard_paths(root, frames, "eval")
     base = ["--data-root", root, "--ann", pkl, "--workers", "2"]
     runs, grids = {}, {}
@@ -2154,9 +2169,9 @@ def eval_loop_phase(root, frames=8):
     log(f"cache-depth veon_b fp32: {n} files in {s:.3f} s, token[:2]/token/token-CAM.npy, "
         f"(256, 704) float32; a second run wrote {again}")
     os.environ.pop("VEON_ENTRY_DTYPE", None)
-    bench, _out, s, launches = run_cli(["benchmark", "--eval", "--frames", "12"])
-    expect_launches(launches, {n: 37 if n == "bev_pool_sorted2" else 0 for n in launches},
-                    "benchmark --eval (1 cold + 12 + 12 pipelined + 12 e2e frames)")
+    bench, _out, s, launches = run_cli(["benchmark", "--eval", "--frames", "6"])
+    expect_launches(launches, {n: 19 if n == "bev_pool_sorted2" else 0 for n in launches},
+                    "benchmark --eval (1 cold + 6 + 6 pipelined + 6 e2e frames)")
     d = bench["detail"]
     if d["dtype"] != "bfloat16" or not all(d[k] > 0 for k in (
             "device_path_fps", "pipelined_fps", "e2e_fps", "hist_ms_per_frame")):
@@ -4061,6 +4076,292 @@ def profiling_phase():
                 trace_host_ms=host_ms)
 
 
+def _launched(kernels, fn, *args):
+    """(fn(*args), the launches it made per kernel), synchronized."""
+    before = {k: f.launches for k, f in kernels.items()}
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: f.launches - before[k] for k, f in kernels.items()}
+
+
+def _artifact(path, seconds, what):
+    """Load a `.pt2` program written by `export`: (program, the numbers of
+    its export and load, its graph's device copies), logged on one line."""
+    from veon_tpu_torch.utils.export import device_copies, load_program
+
+    t = time.perf_counter()
+    saved = load_program(path)
+    program = saved.module()
+    load_s = time.perf_counter() - t
+    copies = {k: len(v) for k, v in device_copies(saved).items()}
+    nodes = sum(1 for n in saved.graph.nodes if n.op == "call_function")
+    checks = sum(1 for n in saved.graph.nodes if "_assert" in str(n.target))
+    pooled = sum(n.target is torch.ops.veon.bev_pool_pooled.default for n in saved.graph.nodes)
+    if pooled != 1 or copies["to_host"] or copies["scalar_reads"]:
+        raise AssertionError(f"{what}: {pooled} kernel #1 nodes, device copies {copies}")
+    res = {"export_s": seconds, "bytes": os.path.getsize(path), "load_s": load_s,
+           "graph_nodes": nodes, "assert_nodes": checks, "device_copies": copies}
+    log(f"{what}: export (the CLI call, model build included) {seconds:.3f} s, "
+        f"{res['bytes']} bytes, load {load_s:.3f} s, {nodes} graph nodes ({checks} of them "
+        f"run-time asserts), kernel #1 once, device copies {copies}")
+    return program, res
+
+
+def in_turns(live, program, args, iters, float_idx=(0, 1)):
+    """ms per call of the live module and the loaded program on the same
+    inputs, timed in turns (live, program, program, live), each turn one
+    run of `iters` back-to-back perturbed calls and one synchronize
+    (`utils/bench_model.py` protocol), then the host's time to enqueue one
+    more call on an idle card (a call that returns long before the card
+    finishes is device-bound; one whose enqueue takes its whole time,
+    host-bound); ({"live"/"artifact": [2 turns], "enqueue_live"/
+    "enqueue_artifact": [2]}, kernel #1 launches made)."""
+    from veon_tpu_torch.utils.bench_model import perturbed, timed_runs
+
+    calls = perturbed(args, iters, float_idx)
+    kernels = reset_launches()
+    ms = {"live": [], "artifact": [], "enqueue_live": [], "enqueue_artifact": []}
+    with torch.no_grad():
+        for name in ("live", "artifact", "artifact", "live"):
+            fn = live if name == "live" else program
+            per, _first = timed_runs(fn, calls, outer=1, warmup=1)
+            ms[name].append(per * 1e3)
+            t = time.perf_counter()
+            fn(*calls[0])
+            ms["enqueue_" + name].append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+    made = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(made, {k: 4 * (iters + 2) * int(k == "bev_pool_pooled") for k in made},
+                    "artifact and live in turns")
+    return ms, made["bev_pool_pooled"]
+
+
+def export_f1_phase(work):
+    """38. `export --preset veon_b` (F=1, bf16) through the CLI, a main path:
+    the `.pt2` program loaded back and run on the live `FrameServer`'s
+    frame, rig metas and open-vocabulary matrix (the same seeded weights):
+    the class grid equal to the live one, kernel #1 once per program call
+    (3 calls), no other launch. The program's one output is the class grid,
+    as JAX's artifact's; phase 39 compares raw outputs. Returns the server
+    and frame for phases 40-41."""
+    from veon_tpu_torch.entry import entry
+    from veon_tpu_torch.utils.export import _serving_cfg
+
+    phase_base()
+    path, _out, seconds, launches = run_cli(["export", "--preset", "veon_b", "--work-dir", work])
+    expect_launches(launches, {k: 0 for k in launches}, "export F=1")
+    program, res = _artifact(path, seconds, "export F=1 veon_b bf16")
+    server, (imgs, depth_imgs) = entry(_serving_cfg("veon_b", compute_dtype="bfloat16"),
+                                       device="cuda", seed=0)
+    kernels = reset_launches()
+    live = server(imgs, depth_imgs)
+    torch.cuda.synchronize()
+    calls = []
+    with torch.no_grad():
+        for _ in range(3):
+            grid, made = _launched(kernels, program, imgs, depth_imgs, server.metas,
+                                   server.ov_weight)
+            expect_launches(made, {k: int(k == "bev_pool_pooled") for k in made},
+                            "F=1 artifact call")
+            calls.append(made["bev_pool_pooled"])
+            if not torch.equal(grid, live):
+                raise AssertionError(f"F=1 artifact grid differs from the live one in "
+                                     f"{int((grid != live).sum())} voxels")
+    ms, timed = in_turns(server.forward, program,
+                         (imgs, depth_imgs, server.metas, server.ov_weight), 10)
+    ratio = statistics.mean(ms["artifact"]) / statistics.mean(ms["live"])
+    res.update(grid_equal=True, launches_pooled=sum(calls) + timed,
+               occupied=float((live != 17).float().mean()), in_turns_ms=ms, ratio=ratio)
+    log(f"export F=1: artifact grid == live FrameServer grid over 3 calls, kernel #1 "
+        f"{calls} per call, occupied share {res['occupied']:.4f}; in turns (10 calls a turn) "
+        f"ms/frame {ms}, artifact / live {ratio:.4f}")
+    del program
+    return path, server, (imgs, depth_imgs, live), res
+
+
+def _t2_compare(program, session, reqs, kernels, frames, what):
+    """Drive calls through a live session and a streaming program side by
+    side, the program's cache rolled by hand: every output equal (the pred
+    bit for bit, raw outputs' max abs difference logged and held within
+    1e-5 of each output's largest value), kernel #1 once per program call."""
+    rig = {k: session.rig_metas[k] for k in ("sensor2egos", "ego2globals", "intrins",
+                                             "post_rots", "post_trans", "bda")}
+    pv, pl = session.state()
+    te = session._zero_embed
+    diffs, calls = {}, []
+    for r, (imgs, depth_imgs) in zip(reqs, frames):
+        l2g = r["lidarego2global"]
+        live = session.infer(imgs, depth_imgs, {"lidarego2global": l2g})
+        m = dict(rig, lidarego2global=l2g, lift_sorted=session.rig_metas["lift_sorted"])
+        with torch.no_grad():
+            out, made = _launched(kernels, program, imgs, depth_imgs, m, session.ov_weight,
+                                  pv, pl, te)
+        expect_launches(made, {k: int(k == "bev_pool_pooled") for k in made}, what)
+        calls.append(made["bev_pool_pooled"])
+        early = out.pop("early_vox")
+        pv = torch.cat([early[:, None].to(pv.dtype), pv[:, :-1]], 1)
+        pl = torch.cat([l2g[:, None].float(), pl[:, :-1]], 1)
+        if set(out) != set(live) or not torch.equal(out["pred"], live["pred"]):
+            raise AssertionError(f"{what}: pred or keys differ")
+        for k in live:
+            d = (out[k].float() - live[k].float()).abs().max().item()
+            diffs[k] = max(diffs.get(k, 0.0), d)
+            if d > 1e-5 * max(live[k].float().abs().max().item(), 1.0):
+                raise AssertionError(f"{what}: {k} off by {d}")
+        del live, out
+    for got, want in zip((pv, pl), session.state()):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: the rolled cache differs from the session's")
+    log(f"{what}: {len(calls)} drive calls equal to the live session (pred bit-equal, raw "
+        f"outputs' max abs difference {diffs}), kernel #1 {calls} per call")
+    return {"max_abs_diff": diffs, "launches_pooled": sum(calls)}
+
+
+def export_t2_phase(work, calls=4):
+    """39. `export --preset veon_b --num-temporal 2` in the preset's dtype
+    (fp32) and with `--raw-uint8`, through the CLI, a main path: each
+    program loaded back and driven by `calls` calls of `example_drive`
+    beside a live `TemporalSession` on the same seeded weights (the float
+    program on the drive's frames, the uint8 one on uint8 frames from
+    numpy's default_rng(5), the session normalizing them on the card).
+    Returns the float program's path for phase 40."""
+    from veon_tpu_torch.entry import temporal_entry
+    from veon_tpu_torch.serve.streaming import TemporalSession
+    from veon_tpu_torch.utils.export import _serving_cfg
+
+    phase_base()
+    res = {}
+    session, reqs = temporal_entry(_serving_cfg("veon_b", num_temporal=2), device="cuda", seed=0,
+                                   frames=calls)
+    kernels = reset_launches()
+    path = None
+    for raw in (False, True):
+        # --raw-uint8 writes the same file name: into a directory of its own
+        argv = ["export", "--preset", "veon_b", "--num-temporal", "2", "--work-dir",
+                os.path.join(work, "raw_uint8") if raw else work]
+        p, _out, seconds, launches = run_cli(argv + (["--raw-uint8"] if raw else []))
+        expect_launches(launches, {k: 0 for k in launches}, "export T=2")
+        what = f"export T=2 veon_b fp32{' raw-uint8' if raw else ''}"
+        program, r = _artifact(p, seconds, what)
+        if raw:
+            rng = np.random.default_rng(5)
+            frames = [tuple(torch.from_numpy(rng.integers(0, 256, size=tuple(x.shape),
+                                                          dtype=np.uint8)).cuda()
+                            for x in (q["imgs"], q["depth_imgs"])) for q in reqs]
+            live = TemporalSession(session.model, session.ov_weight, session.membership,
+                                   rig_metas=session.rig_metas,
+                                   normalize=("clipsan", session.model.cfg.data.depth_norm_method))
+        else:
+            frames = [(q["imgs"], q["depth_imgs"]) for q in reqs]
+            session.reset()
+            live, path = session, p
+        r.update(_t2_compare(program, live, reqs, kernels, frames, what))
+        if not raw:
+            m = dict({k: v for k, v in live.rig_metas.items() if k != "lift_sorted"},
+                     lidarego2global=reqs[0]["lidarego2global"],
+                     lift_sorted=live.rig_metas["lift_sorted"])
+            pv, pl = live.state()
+            ms, timed = in_turns(live.step, program, (*frames[0], m, live.ov_weight, pv, pl,
+                                                      live._zero_embed), 3)
+            r.update(in_turns_ms=ms, ratio=statistics.mean(ms["artifact"])
+                     / statistics.mean(ms["live"]))
+            r["launches_pooled"] += timed
+            log(f"{what}: in turns (3 calls a turn) ms/call {ms}, artifact / live "
+                f"{r['ratio']:.4f}")
+        res["raw_uint8" if raw else "float"] = r
+        del program
+        if raw:
+            os.remove(p)  # phase 40 times the float program only
+        gc.collect()
+        torch.cuda.empty_cache()
+    return path, res
+
+
+def benchmark_phase(f1_path, t2_path):
+    """40. `benchmark` through the CLI, a main path: the live F=1 graph bf16,
+    the streaming step `--num-temporal 2` bf16, then `--artifact` on the F=1
+    (bf16) and T=2 (fp32) programs; each JSON line, kernel #1's launches
+    per run (2 warm-up + 3 runs of 10 calls), and the F=1 artifact-to-live
+    ms ratio (phases 38-39 time both programs in turns with the live
+    modules as well)."""
+    phase_base()
+    runs = {}
+    argvs = {"live_f1_bf16": ["benchmark", "--preset", "veon_b"],
+             "live_t2_bf16": ["benchmark", "--preset", "veon_b", "--num-temporal", "2"],
+             "artifact_f1_bf16": ["benchmark", "--artifact", f1_path],
+             "artifact_t2_fp32": ["benchmark", "--artifact", t2_path]}
+    for name, argv in argvs.items():
+        line, _out, seconds, launches = run_cli(argv)
+        expect_launches(launches, {k: 32 * int(k == "bev_pool_pooled") for k in launches},
+                        f"benchmark {name}")
+        if not (math.isfinite(line["value"]) and line["value"] > 0):
+            raise AssertionError(f"benchmark {name}: {line}")
+        runs[name] = dict(line=line, seconds=seconds, launches_pooled=launches["bev_pool_pooled"])
+        log(f"benchmark {name} ({seconds:.1f} s): {json.dumps(line)}")
+    ms = {k: v["line"]["detail"]["ms_per_frame"] for k, v in runs.items()}
+    ratio = ms["artifact_f1_bf16"] / ms["live_f1_bf16"]
+    log(f"benchmark F=1 bf16 artifact / live ms: {ratio:.4f}")
+    return {"runs": runs, "ratio_f1_bf16": ratio,
+            "launches_pooled": sum(v["launches_pooled"] for v in runs.values())}
+
+
+def serve_exported_phase(f1_path, server, frame):
+    """41. `serve_exported` of the F=1 program, a main path: the rig metas and
+    open-vocabulary matrix bound, 2 requests of the frame through
+    `TensorClient` (the first on the connection's fresh thread), each pred
+    equal to the live grid, kernel #1 once per request."""
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.serve.server import serve_exported
+
+    imgs, depth_imgs, live = frame
+    d = socket_dir()
+    sock = os.path.join(d, "s.sock")
+    t = time.perf_counter()
+    srv = serve_exported(f1_path, sock, bound={"metas": server.metas,
+                                               "ov_weight": server.ov_weight},
+                         request_keys=("imgs", "depth_imgs"),
+                         arg_order=("imgs", "depth_imgs", "metas", "ov_weight"),
+                         out_names=("pred",))
+    start_s = time.perf_counter() - t
+    req = {"imgs": imgs.cpu().numpy(), "depth_imgs": depth_imgs.cpu().numpy()}
+    kernels = reset_launches()
+    rts, sms, calls = [], [], []
+    try:
+        with TensorClient(sock) as c:
+            for i in range(2):
+                out, rt, made = _served(c, kernels, req, f"serve_exported request {i}")
+                if not np.array_equal(out["pred"], live.cpu().numpy()):
+                    raise AssertionError("serve_exported pred differs from the live grid")
+                rts.append(rt)
+                sms.append(float(out["server_ms"][0]))
+                calls.append(made)
+    finally:
+        srv.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"serve_exported F=1: start (load) {start_s:.3f} s, request bytes {_nbytes(req)}, "
+        f"round trip ms {[round(x, 3) for x in rts]}, server_ms {[round(x, 3) for x in sms]}, "
+        f"pred == live grid, kernel #1 {calls} per request")
+    return {"start_s": start_s, "round_trip_ms": rts, "server_ms": sms,
+            "launches_pooled": sum(calls)}
+
+
+def export_phases():
+    """Phases 38-41 on one temporary work directory (the programs, ~6 GB,
+    deleted at the end)."""
+    work = tempfile.mkdtemp(prefix="veon_export")
+    try:
+        f1_path, server, frame, f1 = export_f1_phase(work)
+        t2_path, t2 = export_t2_phase(work)
+        bench = benchmark_phase(f1_path, t2_path)
+        served = serve_exported_phase(f1_path, server, frame)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del server, frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"export_f1": f1, "export_t2": t2, "benchmark": bench, "serve_exported": served}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4190,6 +4491,8 @@ def main():
     lap("36 rec options")
     prof = profiling_phase()
     lap("37 profiling")
+    exported = export_phases()
+    lap("38-41 export, benchmarks, serve_exported")
 
     # launches on the main paths: the F=1 frames, the requests served from
     # converted weights and the new presets' frames, the zoe frames, calls
@@ -4199,14 +4502,20 @@ def main():
     # temporal train steps (F per step), the data-parallel steps (#3); the
     # F=2 full-frustum temporal step (#2); phases 33-37: the parity, vis and
     # train --remat runs (#3), the REC_CROSS_ATTN=False frames (#1), the
-    # lift microbench's calls (#2)
+    # lift microbench's calls (#2); phases 38-41: the exported programs'
+    # calls, the benchmarks' calls and the requests served from a program (#1)
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
                                 + sum(weights["launches_per_request"])
                                 + new_presets["launches"]["bev_pool_pooled"]
                                 + zoe_f1["launches"]["bev_pool_pooled"]
                                 + zoe_t2["launches"]["bev_pool_pooled"]
                                 + zoe_weights["launches_pooled"]
-                                + rec_opts["launches"]["bev_pool_pooled"]),
+                                + rec_opts["launches"]["bev_pool_pooled"]
+                                + exported["export_f1"]["launches_pooled"]
+                                + exported["export_t2"]["float"]["launches_pooled"]
+                                + exported["export_t2"]["raw_uint8"]["launches_pooled"]
+                                + exported["benchmark"]["launches_pooled"]
+                                + exported["serve_exported"]["launches_pooled"]),
             "bev_pool_sorted": (sorted_res["full_bf16"],
                                 train["full"]["launches"]["bev_pool_sorted"]
                                 + temporal_cli["launches_sorted"]
@@ -4249,7 +4558,7 @@ def main():
                    "temporal_train_parity": temporal_train_small,
                    "temporal_cli": temporal_cli, "data_parallel": data_parallel,
                    "parity": parity, "vis": vis, "remat": remat, "rec_options": rec_opts,
-                   "profiling": prof,
+                   "profiling": prof, "export": exported,
                    "builds": {k: v["seconds"] for k, v in builds.items()}, "phase_s": laps,
                    "script_s": time.perf_counter() - script_t0},
                   f, indent=1)

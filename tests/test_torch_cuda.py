@@ -134,6 +134,23 @@ def test_sorted_kernels_match_plain(card, streams, C, dtype):
         torch.testing.assert_close(got.float(), want32, rtol=2 ** -7, atol=1e-5)
 
 
+def test_registered_ops_launch_the_kernels(card):
+    """Called as registered operators (as a loaded `.pt2` program calls
+    them), kernels #1-#3 launch and count, and equal the wrappers."""
+    depth, feat, order, rk, num_cells = _pooled_case(card, 16, torch.float32)
+    vals, rk2 = _stream(card, 6000, 16, 5000, torch.float32)
+    cases = ((bp.bev_pool_pooled, torch.ops.veon.bev_pool_pooled, (depth, feat, order, rk,
+                                                                   num_cells, 8)),
+             (bp.bev_pool_sorted, torch.ops.veon.bev_pool_sorted, (vals, rk2, 5000)),
+             (bp.bev_pool_sorted2, torch.ops.veon.bev_pool_sorted2, (vals, rk2, vals, rk2, 5000)))
+    for wrapper, op, args in cases:
+        before = wrapper.launches
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        torch.testing.assert_close(got, wrapper(*args), rtol=0, atol=0)
+
+
 def test_sorted_kernel_rejects_what_it_does_not_take(card):
     vals, rk = _stream(card, 100, 16, 64, torch.float32)
     with pytest.raises(TypeError):

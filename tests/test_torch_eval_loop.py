@@ -20,7 +20,7 @@ config it built, which is what it would compute again.
 - `benchmark --eval` at the tiny preset: every leg positive, the last line
   one JSON record.
 - The refusals that remain: camera-sharded training, JAX's remat policy
-  factories, the live-model and artifact benchmarks.
+  factories, `export --native` and `export --raw-uint8` at F=1.
 """
 
 import dataclasses
@@ -209,9 +209,11 @@ def test_benchmark_eval_tiny_all_legs(monkeypatch, tmp_path, capsys):
     # remat policies are ported (item 11a); JAX's policy factories stay refused
     pytest.param(["train", "--remat", "save_only_these_names"], ValueError, "factory",
                  id="argv3-item 11a"),
-    pytest.param(["benchmark"], NotImplementedError, "item 23", id="argv5-item 23"),
-    pytest.param(["benchmark", "--eval", "--artifact", "x.stablehlo"], NotImplementedError,
-                 "item 21", id="argv6-item 21"),
+    # the ids name the items these two cases refused before `benchmark` and
+    # `export` were ported (23, 21); what stays refused of export is tested
+    pytest.param(["export", "--raw-uint8"], SystemExit, "needs --num-temporal > 1",
+                 id="argv5-item 23"),
+    pytest.param(["export", "--native"], NotImplementedError, "item 25", id="argv6-item 21"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, error, item):
     with pytest.raises(error, match=item):

@@ -2,9 +2,11 @@
 `serve`, `selftest`, `train` (stage 2), `pretrain-depth` (stage 1),
 `publish`, `test` (Occ3D mIoU of the model or of training checkpoints, or
 POP-3D retrieval AP with --retrieval), `cache-depth`, `create-infos`,
-`benchmark --eval`, `parity` (weights day: a reference dump replayed
-boundary by boundary) and `vis` (occupancy images, point cloud, semantic
-overlays) subcommands. `text_classifier`, the counterpart of the reference's
+`benchmark` (the live F=1 graph, the streaming step, an exported program,
+or with --eval the `test` loop), `export` (the serving graph as a
+`torch.export` `.pt2` program), `parity` (weights day: a reference dump
+replayed boundary by boundary) and `vis` (occupancy images, point cloud,
+semantic overlays) subcommands. `text_classifier`, the counterpart of the reference's
 `_text_classifier`, lives in `nn/text.py` and is re-exported here.
 
     python -m veon_tpu_torch.cli.main serve --preset veon_b \
@@ -32,6 +34,10 @@ overlays) subcommands. `text_classifier`, the counterpart of the reference's
     python -m veon_tpu_torch.cli.main create-infos --data-root data/nuscenes \
         [--version v1.0-trainval] [--val-scenes val.txt] [--out-prefix ...]
     python -m veon_tpu_torch.cli.main benchmark --eval [--frames 12]
+    python -m veon_tpu_torch.cli.main benchmark [--preset veon_l] \
+        [--num-temporal 2 | --artifact work_dir/veon_infer.pt2]
+    python -m veon_tpu_torch.cli.main export --work-dir work_dir \
+        [--num-temporal 2 [--raw-uint8]]
     python -m veon_tpu_torch.cli.main parity --dumps dump_dir \
         [--weights-dir ckpts/ | --load-from SAN.pth --depth-load-from depth.pth]
     python -m veon_tpu_torch.cli.main vis --work-dir vis_out \
@@ -44,8 +50,13 @@ package's python and C++ clients): F=1 requests carry imgs and
 depth_imgs, streaming requests (--num-temporal > 1) one frame each plus
 lidarego2global; either may add text_embed (C,) or text_tokens (1, 77)
 int32 for a free-text `retrieval` map. The CLI computes in the preset's
-dtype (fp32 for every preset, as the reference's CLI); `benchmark --eval`
-in bf16 unless VEON_ENTRY_DTYPE names another. Weights come from the
+dtype (fp32 for every preset, as the reference's CLI); `benchmark` in bf16
+unless VEON_ENTRY_DTYPE names another; `export` the F=1 graph in bf16 (the
+flagship's) and the streaming step in the preset's dtype. A `.pt2` holds
+its weights and runs on the device it was exported on; it loads where
+`veon_tpu_torch` imports, since kernels #1-#3 are its registered
+operators (`utils/export.py` `load_inference`; `serve/server.py`
+`serve_exported` serves one). Weights come from the
 reference's PyTorch checkpoints (`--load-from`, `--depth-load-from`,
 converted by `ckpt/convert.py`, LoRA folded in), else seeded stand-ins;
 `entry.serve_entry` also takes JAX variables and text-tower params.
@@ -57,7 +68,7 @@ dir; --remat recomputes the scan-stacked blocks in the backward (full, the
 default, as the reference's `torch.utils.checkpoint`), none, or saves what
 a named policy says (`nn/rematutil.py`). `parity` exits 1 on a failed
 boundary. Still refused, each naming its ROADMAP item: --cam-shards > 1
-(16), the live-model and exported-artifact benchmarks (23, 21).
+(16), `export --native` (25).
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ import time
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from .. import resolve_device, torch_dtype
 from ..ckpt import convert as C
@@ -100,6 +112,8 @@ from ..train.loop import _to_device, evaluate_occ, train_epochs, write_depth_cac
 from ..train.distributed import broadcast_state, initialize as dist_init, process_shard
 from ..train.distributed import shutdown as dist_shutdown
 from ..train.step import AdamW, create_train_state, make_train_step, stage2_trainable
+from ..utils import bench_model
+from ..utils.export import _build_streaming, export_flagship, export_streaming, load_program
 from ..utils.logging import MetricWriter
 from ..utils.params import param_table
 
@@ -605,20 +619,109 @@ def cmd_create_infos(args):
 
 
 def cmd_benchmark(args):
-    """`benchmark --eval`: the `test` loop timed on a synthetic shard
-    (`utils/eval_bench.py`), in bf16 unless VEON_ENTRY_DTYPE says otherwise."""
+    """Serving benchmarks (counterpart of `cmd_benchmark`), in bf16 unless
+    VEON_ENTRY_DTYPE names another dtype: `--eval` times the `test` loop on
+    a synthetic shard (`utils/eval_bench.py`); `--artifact` an exported
+    `.pt2` program; `--num-temporal > 1` the streaming step; else the live
+    F=1 serving graph of --preset (`utils/bench_model.py` `measure`). The
+    last three print one JSON line, which they return."""
     from ..utils import eval_bench  # it imports this module
 
+    dtype = os.environ.get("VEON_ENTRY_DTYPE", "bfloat16")
+    if args.eval_loop:
+        return eval_bench.run(n_frames=args.frames, preset=args.preset, dtype=dtype,
+                              workers=args.workers, raw_uint8=args.raw_uint8,
+                              pipeline=args.pipeline, device=args.device)
     if args.artifact:
-        raise NotImplementedError("benchmarking an exported artifact (--artifact) is not ported "
-                                  "yet: ROADMAP Queue 1 item 21")
-    if not args.eval_loop:
-        raise NotImplementedError("the live-model and streaming benchmarks (benchmark without "
-                                  "--eval) are not ported yet: ROADMAP Queue 1 item 23")
-    return eval_bench.run(n_frames=args.frames, preset=args.preset,
-                          dtype=os.environ.get("VEON_ENTRY_DTYPE", "bfloat16"),
-                          workers=args.workers, raw_uint8=args.raw_uint8,
-                          pipeline=args.pipeline, device=args.device)
+        line = _benchmark_artifact(args)
+    elif args.num_temporal > 1:
+        line = _benchmark_streaming(args, dtype)
+    else:
+        fps, detail = bench_model.measure(args.preset, dtype, iters=BENCH_ITERS,
+                                          device=args.device)
+        line = {"metric": f"{args.preset}_6cam_frames_per_sec_per_chip", "value": fps,
+                "unit": "frames/s", "detail": detail}
+    print(json.dumps(line))
+    return line
+
+
+BENCH_ITERS = 10  # back-to-back calls per timed run (JAX's on-device loop length)
+
+
+@torch.no_grad()
+def _benchmark_streaming(args, dtype: str, n_iters: int = BENCH_ITERS):
+    """Steady streaming frames/s (counterpart of `_benchmark_streaming`, the
+    reference's `benchmark_sequential.py`): each timed call is one serving
+    step of `utils/export.py` `_build_streaming` whose early_vox rolls into
+    the next call's prev_vox, as JAX's scan carry does, on perturbed frames
+    (`bench_model` protocol)."""
+    step, (imgs, depth_imgs, m1, ovw, prev_vox, prev_l2g, te) = _build_streaming(
+        args.preset, args.num_temporal, compute_dtype=dtype, device=args.device)
+    cache = [prev_vox]
+
+    def call(imgs, depth_imgs):
+        pv = cache[0]
+        out = step(imgs, depth_imgs, m1, ovw, pv, prev_l2g, te)
+        cache[0] = torch.cat([out["early_vox"][:, None].to(pv.dtype), pv[:, :-1]], 1)
+
+    per, first_s = bench_model.timed_runs(
+        call, bench_model.perturbed((imgs, depth_imgs), n_iters, (0, 1)), device=args.device)
+    return {"metric": f"{args.preset}_streaming_t{args.num_temporal}_frames_per_sec",
+            "value": 1.0 / per, "unit": "frames/s",
+            "detail": {"ms_per_frame": per * 1e3, "compute_dtype": dtype, "iters": n_iters,
+                       "first_call_s": first_s}}
+
+
+@torch.no_grad()
+def _benchmark_artifact(args, n_iters: int = BENCH_ITERS, outer: int = 3):
+    """Deployed-artifact frames/s (counterpart of `_benchmark_artifact`, the
+    reference's `benchmark_trt.py`): the `.pt2` program itself, loaded
+    without the model's code, under the `bench_model` protocol. It runs on
+    the example inputs saved in the program, every float leaf perturbed per
+    call. JAX feeds zeros to the integer leaves instead, which for the
+    presorted lift's order / rank streams would put every point in cell 0
+    and time kernel #1 on one cell; the saved streams are the fixed rig's,
+    the served workload."""
+    t0 = time.perf_counter()
+    saved = load_program(args.artifact)
+    program = saved.module()
+    load_s = time.perf_counter() - t0
+    leaves, spec = pytree.tree_flatten(tuple(saved.example_inputs[0]))
+    floats = [i for i, x in enumerate(leaves) if x.is_floating_point()]
+    calls = [pytree.tree_unflatten(list(c), spec)
+             for c in bench_model.perturbed(leaves, n_iters, floats)]
+    per, first_s = bench_model.timed_runs(program, calls, outer=outer, device=leaves[0].device)
+    name = os.path.splitext(os.path.basename(args.artifact))[0]
+    return {"metric": f"{name}_artifact_frames_per_sec", "value": 1.0 / per, "unit": "frames/s",
+            "detail": {"ms_per_frame": per * 1e3, "n_inputs": len(leaves), "iters": n_iters,
+                       "first_call_s": first_s, "load_s": load_s}}
+
+
+def cmd_export(args):
+    """Serving export (counterpart of `cmd_export`, the reference's
+    `tools/convert_bevdet_to_TRT.py`): the F=1 serving graph of --preset in
+    bf16 (the flagship's, `export_flagship`) to <work-dir>/veon_infer.pt2,
+    or with --num-temporal > 1 the streaming step in the preset's dtype to
+    <work-dir>/veon_infer_t<N>.pt2, with --raw-uint8 taking raw uint8
+    frames. Returns the path."""
+    if args.raw_uint8 and args.num_temporal <= 1:
+        raise SystemExit("export --raw-uint8 needs --num-temporal > 1 (the streaming step "
+                         "exporter); the single-frame flagship artifact is the entry() graph, "
+                         "which is frozen at normalized-float inputs")
+    if args.native:
+        raise NotImplementedError("export --native (an AOTInductor package with a C++ runner "
+                                  "over libtorch) is not ported yet: ROADMAP Queue 1 item 25")
+    t0 = time.perf_counter()
+    if args.num_temporal > 1:
+        path = os.path.join(args.work_dir, f"veon_infer_t{args.num_temporal}.pt2")
+        export_streaming(path, preset=args.preset, num_temporal=args.num_temporal,
+                         raw_uint8=args.raw_uint8, device=args.device)
+    else:
+        path = export_flagship(os.path.join(args.work_dir, "veon_infer.pt2"),
+                               preset=args.preset, device=args.device)
+    print(f"exported: {path} ({os.path.getsize(path)} bytes, "
+          f"{time.perf_counter() - t0:.3f} s)")
+    return path
 
 
 def cmd_parity(args):
@@ -716,9 +819,11 @@ def cmd_vis(args):
 COMMANDS = {"serve": cmd_serve, "selftest": cmd_selftest, "train": cmd_train,
             "pretrain-depth": cmd_pretrain_depth, "publish": cmd_publish, "test": cmd_test,
             "cache-depth": cmd_cache_depth, "create-infos": cmd_create_infos,
-            "benchmark": cmd_benchmark, "parity": cmd_parity, "vis": cmd_vis}
+            "benchmark": cmd_benchmark, "parity": cmd_parity, "vis": cmd_vis,
+            "export": cmd_export}
 _TRAIN = ("train", "pretrain-depth")
-_MODEL = ("serve", "selftest", "test", "cache-depth", "benchmark", "parity", "vis") + _TRAIN
+_MODEL = ("serve", "selftest", "test", "cache-depth", "benchmark", "parity", "vis",
+          "export") + _TRAIN
 # the commands whose model takes frame counts and text
 _FRAMES = ("serve", "selftest", "test", "train", "parity", "vis")
 _DATA = ("test", "cache-depth") + _TRAIN
@@ -728,7 +833,7 @@ OPTIONS = (
     (("--preset",), dict(default="veon_b", help="veon_b, veon_b_fast, veon_b_fast2, veon_l, "
                                                 "veon_b_zoe, veon_l_zoe or veon_tiny_test"),
      _MODEL),
-    (("--num-temporal",), dict(type=int, default=1), _FRAMES),
+    (("--num-temporal",), dict(type=int, default=1), _FRAMES + ("benchmark", "export")),
     (("--device",), dict(default="cuda", help="cuda, or cpu for the plain versions"), _MODEL),
     (("--bpe-path",), dict(default=None, help="CLIP bpe_simple_vocab_16e6.txt.gz for exact "
                                               "tokenization"), _FRAMES),
@@ -739,10 +844,11 @@ OPTIONS = (
     (("--dumps",), dict(default=None, help="reference dump directory (inputs.npz, "
                         "boundaries.npz, manifest.json) from dump_reference.py"), ("parity",)),
     (("--socket",), dict(default="/tmp/veon_serve.sock", help="unix socket path"), ("serve",)),
-    (("--raw-uint8",), dict(action="store_true", help="serve: accept raw uint8 RGB frames; "
-                            "test / cache-depth / benchmark --eval: the loader ships post-aug "
-                            "uint8 frames; either way they are normalized on the device"),
-     ("serve", "test", "cache-depth", "benchmark")),
+    (("--raw-uint8",), dict(action="store_true", help="serve / export --num-temporal > 1: "
+                            "accept raw uint8 RGB frames; test / cache-depth / benchmark "
+                            "--eval: the loader ships post-aug uint8 frames; either way they "
+                            "are normalized on the device"),
+     ("serve", "test", "cache-depth", "benchmark", "export")),
     (("--cam-shards",), dict(type=int, default=1, help="not ported: must be 1"),
      ("serve", "train")),
     (("--load-from",), dict(default=None, help="reference SAN/VEON semantic .pth"),
@@ -758,7 +864,7 @@ OPTIONS = (
     (("--batch-size",), dict(type=int, default=1), ("cache-depth",) + _TRAIN),
     (("--work-dir",), dict(default="work_dir", help="training checkpoints step_<n>/ and "
                            "train.log.jsonl; test --all-ckpts sweeps it; vis writes its "
-                           "images there"), ("test", "vis") + _TRAIN),
+                           "images there; export its .pt2"), ("test", "vis", "export") + _TRAIN),
     (("--accum-steps",), dict(type=int, default=1, help="gradient accumulation micro-steps per "
                               "optimizer update (effective batch = batch-size x this)"), _TRAIN),
     (("--lr",), dict(type=float, default=1e-4), _TRAIN),
@@ -813,7 +919,10 @@ OPTIONS = (
                        "loop on a synthetic shard"), ("benchmark",)),
     (("--frames",), dict(type=int, default=12, help="benchmark --eval: synthetic shard size"),
      ("benchmark",)),
-    (("--artifact",), dict(default=None, help="not ported"), ("benchmark",)),
+    (("--artifact",), dict(default=None, help="time an exported .pt2 program (export's "
+                           "output) instead of the live model"), ("benchmark",)),
+    (("--native",), dict(action="store_true", help="not ported (ROADMAP Queue 1 item 25)"),
+     ("export",)),
 )
 
 

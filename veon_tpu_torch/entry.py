@@ -7,7 +7,9 @@ Serving, the VEON-B F=1 forward from camera images to the class grid
     grid = forward(imgs, depth_imgs)           # (1, 200, 200, 16) int32
 
 The rig is fixed, so its rank sort is precomputed once here
-(`LSSLift.precompute_sorted`) and each frame runs no sort.
+(`LSSLift.precompute_sorted`) and each frame runs no sort. The graph
+itself is `forward.forward`, a stateless `ServingForward` of (imgs,
+depth_imgs, metas, ov_weight), which `utils/export.py` freezes.
 
 Temporal serving, a streaming session over a synthetic drive (counterpart
 of `veon_tpu serve --num-temporal 2`, the flagship's temporal mode):
@@ -50,6 +52,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import resolve_device
 from .cli.shapes import example_batch, example_batch_full, example_depth_imgs, example_drive
@@ -67,9 +70,27 @@ from .serve.streaming import TemporalSession
 from .train.step import AdamW, TrainState, create_train_state, make_train_step
 
 
+class ServingForward(nn.Module):
+    """The F=1 serving graph as a stateless module (counterpart of the
+    `forward` of `veon_tpu/utils/bench_model.py` `build_serving_forward`):
+    (imgs, depth_imgs, metas, ov_weight) -> the (B, X, Y, Z) int32 class
+    grid. The weights and the vocabulary's merge are the module's; the rig
+    metas (with "lift_sorted") and the open-vocabulary matrix are inputs,
+    so `utils/export.py` freezes the one and keeps the others arguments."""
+
+    def __init__(self, model: VeonModel, membership):
+        super().__init__()
+        self.model, self.membership = model, membership
+
+    def forward(self, imgs, depth_imgs, metas, ov_weight):
+        return fused_classes(self.model.full_forward(imgs, depth_imgs, metas, ov_weight),
+                             self.membership)
+
+
 class FrameServer:
     """A built model with its rig precompute, vocabulary merge and
-    open-vocabulary weights; calling it serves one frame.
+    open-vocabulary weights; calling it serves one frame through its
+    `ServingForward` (`forward`).
     `normalize=(img_method, depth_method)` makes `infer` take raw uint8 HWC
     frames and normalize them on the device (`data/transforms.py`)."""
 
@@ -77,6 +98,7 @@ class FrameServer:
         self.model, self.metas = model, metas
         self.ov_weight, self.membership = ov_weight, membership
         self.normalize = normalize
+        self.forward = ServingForward(model, membership)
 
     @torch.no_grad()
     def outputs(self, imgs, depth_imgs):
@@ -86,7 +108,7 @@ class FrameServer:
     @torch.no_grad()
     def __call__(self, imgs, depth_imgs):
         """The (B, X, Y, Z) int32 class grid of normalized frames."""
-        return fused_classes(self.outputs(imgs, depth_imgs), self.membership)
+        return self.forward(imgs, depth_imgs, self.metas, self.ov_weight)
 
     @torch.no_grad()
     def infer(self, imgs, depth_imgs, text_embed=None) -> Dict[str, torch.Tensor]:

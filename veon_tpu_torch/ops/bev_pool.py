@@ -14,9 +14,14 @@ by voxel rank, per cell in one pass of a hand-written CUDA kernel:
   * `bev_pool_sorted2` (same source, TPU kernel `_bev_pool_block_kernel2`):
     two streams summed into one grid (the banded lift with its far-depth
     spray, the training default).
-On a CPU tensor a wrapper runs its kernel's plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises. Each wrapper counts its launches
-in `<wrapper>.launches`.
+Each kernel is a registered operator (`torch.ops.veon.bev_pool_pooled`,
+`.bev_pool_sorted`, `.bev_pool_sorted2`, with a fake version that gives
+the output's shape and dtype), so `torch.export` keeps it as one node of a
+graph and a loaded program calls it again (`utils/export.py`). On a CPU
+tensor an operator runs its kernel's plain PyTorch version; on a CUDA
+tensor it launches the kernel or raises; on any other device it raises.
+Each launch, from a wrapper or from a loaded program, counts in
+`<wrapper>.launches`.
 
 The differentiable ops (`bev_pool`, `bev_pool_banded`, `bev_pool_banded2`,
 `bev_pool_presorted_pooled`) are `torch.autograd.Function`s whose backwards
@@ -132,6 +137,16 @@ def bev_pool_pooled(depth, feat, order, rk_sorted, num_cells: int, pool_r: int):
                         f"got {depth.dtype} and {feat.dtype}")
     if num_cells % pool_r:
         raise ValueError(f"num_cells {num_cells} is not a multiple of pool_r {pool_r}")
+    return torch.ops.veon.bev_pool_pooled(depth, feat, order, rk_sorted, num_cells, pool_r)
+
+
+bev_pool_pooled.launches = 0
+
+
+@torch.library.custom_op("veon::bev_pool_pooled", mutates_args=(),
+                         schema="(Tensor depth, Tensor feat, Tensor order, Tensor rk_sorted, "
+                                "int num_cells, int pool_r) -> Tensor")
+def _pooled_op(depth, feat, order, rk_sorted, num_cells, pool_r):
     dev = feat.device
     if dev.type == "cpu":
         return bev_pool_pooled_plain(presorted_vals(depth, feat, order), rk_sorted, num_cells,
@@ -174,7 +189,9 @@ def bev_pool_pooled(depth, feat, order, rk_sorted, num_cells: int, pool_r: int):
     return out
 
 
-bev_pool_pooled.launches = 0
+@_pooled_op.register_fake
+def _(depth, feat, order, rk_sorted, num_cells, pool_r):
+    return feat.new_empty(num_cells // pool_r, feat.shape[-1])
 
 
 def bev_pool_sorted_plain(streams: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -216,7 +233,17 @@ def _launch_sorted(name, streams, num_cells: int):
 
 def bev_pool_sorted(vals, rk_sorted, num_cells: int):
     """One sorted (P, C) stream -> (num_cells, C) per-cell sums in vals'
-    dtype (kernel #2). Counts launches in `bev_pool_sorted.launches`."""
+    dtype (kernel #2, `torch.ops.veon.bev_pool_sorted`). Counts launches in
+    `bev_pool_sorted.launches`."""
+    return torch.ops.veon.bev_pool_sorted(vals, rk_sorted, num_cells)
+
+
+bev_pool_sorted.launches = 0
+
+
+@torch.library.custom_op("veon::bev_pool_sorted", mutates_args=(),
+                         schema="(Tensor vals, Tensor rk_sorted, int num_cells) -> Tensor")
+def _sorted_op(vals, rk_sorted, num_cells):
     if vals.device.type == "cpu":
         return bev_pool_sorted_plain([(vals, rk_sorted)], num_cells, vals.dtype)
     out = _launch_sorted("bev_pool_sorted", [(vals, rk_sorted)], num_cells)
@@ -224,13 +251,25 @@ def bev_pool_sorted(vals, rk_sorted, num_cells: int):
     return out
 
 
-bev_pool_sorted.launches = 0
+@_sorted_op.register_fake
+def _(vals, rk_sorted, num_cells):
+    return vals.new_empty(num_cells, vals.shape[1])
 
 
 def bev_pool_sorted2(vals1, rk1, vals2, rk2, num_cells: int):
     """Two sorted streams -> one (num_cells, C) grid of per-cell sums, stream
-    1 rows before stream 2 rows (kernel #3). Counts launches in
-    `bev_pool_sorted2.launches`."""
+    1 rows before stream 2 rows (kernel #3, `torch.ops.veon.bev_pool_sorted2`).
+    Counts launches in `bev_pool_sorted2.launches`."""
+    return torch.ops.veon.bev_pool_sorted2(vals1, rk1, vals2, rk2, num_cells)
+
+
+bev_pool_sorted2.launches = 0
+
+
+@torch.library.custom_op("veon::bev_pool_sorted2", mutates_args=(),
+                         schema="(Tensor vals1, Tensor rk1, Tensor vals2, Tensor rk2, "
+                                "int num_cells) -> Tensor")
+def _sorted2_op(vals1, rk1, vals2, rk2, num_cells):
     if vals1.device.type == "cpu":
         return bev_pool_sorted_plain([(vals1, rk1), (vals2, rk2)], num_cells, vals1.dtype)
     out = _launch_sorted("bev_pool_sorted2", [(vals1, rk1), (vals2, rk2)], num_cells)
@@ -238,7 +277,9 @@ def bev_pool_sorted2(vals1, rk1, vals2, rk2, num_cells: int):
     return out
 
 
-bev_pool_sorted2.launches = 0
+@_sorted2_op.register_fake
+def _(vals1, rk1, vals2, rk2, num_cells):
+    return vals1.new_empty(num_cells, vals1.shape[1])
 
 
 def sorted_stream(weights, feat_flat, ranks, valid_cap: Optional[float] = None):

@@ -1,6 +1,7 @@
 """Unix-socket tensor server (counterpart of `veon_tpu/serve/server.py`
-`TensorServer`). It serves a handler built by `entry.serve_entry` (or any
-callable of named tensors); the clients are `serve/client.py` and the JAX
+`TensorServer` and `serve_exported`). It serves a handler built by
+`entry.serve_entry`, an exported `.pt2` program (`serve_exported`) or any
+callable of named tensors; the clients are `serve/client.py` and the JAX
 package's python and C++ clients, which share the framing.
 """
 
@@ -14,7 +15,9 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
+from .. import resolve_device
 from .protocol import error_frame, recv_frame, send_frame
 
 
@@ -121,3 +124,45 @@ class TensorServer:
                 os.unlink(self.socket_path)
             except OSError:
                 pass
+
+
+def serve_exported(artifact_path: str, socket_path: str, bound: Dict[str, Any],
+                   request_keys: Sequence[str], arg_order: Sequence[str],
+                   out_names: Optional[Sequence[str]] = None, device="cuda") -> TensorServer:
+    """Serve a saved `.pt2` program (`utils/export.py`) over the socket
+    protocol (counterpart of `veon_tpu/serve/server.py` `serve_exported`).
+
+    bound: name -> fixed argument (a tensor or a tree of tensors, such as
+    the rig metas with their presorted lift), moved to `device` once.
+    arg_order: the names of the program's positional arguments, each looked
+    up in `bound` or, per request, in the request's tensors (moved to
+    `device`). A dict output is answered key by key; a tensor or a tuple
+    under `out_names` (default out0, out1, ...). The first request pays
+    the kernels' build; the program itself is shape-frozen, so nothing
+    compiles. Returns the started server."""
+    from ..utils.export import load_inference
+
+    dev = resolve_device(device)
+    program = load_inference(artifact_path)
+
+    def on_dev(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    bound_dev = pytree.tree_map(on_dev, dict(bound))
+
+    @torch.no_grad()
+    def fn(**req):
+        args = [bound_dev[k] if k in bound_dev else on_dev(req[k]) for k in arg_order]
+        out = program(*args)
+        if isinstance(out, dict):
+            return out
+        if not isinstance(out, (tuple, list)):
+            out = (out,)
+        names = out_names or [f"out{i}" for i in range(len(out))]
+        return dict(zip(names, out))
+
+    srv = TensorServer(fn, socket_path, required=request_keys)
+    srv.start()
+    return srv

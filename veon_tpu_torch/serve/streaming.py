@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
 
 from .. import torch_dtype
 from ..data.transforms import normalize_in_graph
@@ -22,10 +23,46 @@ from ..model.veon import VeonModel, fusion_rule, retrieval_map
 from ..nn import text as text_mod
 
 
+class StreamingStep(nn.Module):
+    """The stateless streaming serving step (counterpart of JAX's
+    `TemporalSession._fn`, without `variables`): (imgs, depth_imgs, metas,
+    ov_weight, prev_vox, prev_l2g, text_embed) -> the model's outputs plus
+    `pred` (the uint8 (1, X, Y, Z) class grid, with a membership matrix),
+    `retrieval` (the free-text map of text_embed; all zero for a zero
+    embedding) and `early_vox` (this frame's voxels for the next call's
+    cache, in the compute dtype). The cache rides in as prev_vox /
+    prev_l2g, so the step holds no state and `utils/export.py` can freeze
+    it; `TemporalSession` keeps the cache around it.
+    `normalize=(img_method, depth_method)` takes raw uint8 HWC frames and
+    normalizes them in the graph; `estimate_depth=False` takes metric depth
+    in place of depth-tower images."""
+
+    def __init__(self, model: VeonModel, membership=None, estimate_depth: bool = True,
+                 normalize=None):
+        super().__init__()
+        self.model, self.membership = model, membership
+        self.estimate_depth, self.normalize = estimate_depth, normalize
+
+    def forward(self, imgs, depth_imgs, metas, ov_weight, prev_vox, prev_l2g, text_embed):
+        if self.normalize is not None:
+            imgs = normalize_in_graph(imgs, self.normalize[0])
+            if self.estimate_depth:
+                depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
+        run = (self.model.full_forward_streaming if self.estimate_depth
+               else self.model.forward_streaming)
+        out = run(imgs, depth_imgs, metas, ov_weight, prev_vox, prev_l2g)
+        if self.membership is not None:
+            merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1)
+            out["pred"] = fusion_rule(merged, out["bin_occ"]).to(torch.uint8)
+        out["retrieval"] = retrieval_map(out["feat_occ"], text_embed)
+        return out
+
+
 class TemporalSession:
     """The last (num_temporal - 1) frames' early voxels and ego poses of one
     ego vehicle (B=1), newest first (slot 0 is frame t-1); `infer` serves
-    one frame and rolls the cache.
+    one frame through the session's `StreamingStep` (`step`) and rolls the
+    cache.
 
     Frames arrive in time order. The cache starts at zero voxels and
     identity poses, so the first num_temporal - 1 calls fuse against zero
@@ -45,7 +82,7 @@ class TemporalSession:
             raise NotImplementedError("camera-sharded streaming is not ported yet")
         self.model, self.ov_weight, self.membership = model, ov_weight, membership
         self.rig_metas = dict(rig_metas or {})
-        self.estimate_depth, self.normalize = estimate_depth, normalize
+        self.step = StreamingStep(model, membership, estimate_depth, normalize)
         dev = ov_weight.device
         nx, ny, nz = cfg.grid.size
         dz, dy, dx = cfg.lss_feat_ds
@@ -67,19 +104,9 @@ class TemporalSession:
         matrix) and `retrieval`."""
         m = dict(self.rig_metas)
         m.update(metas)
-        if self.normalize is not None:
-            imgs = normalize_in_graph(imgs, self.normalize[0])
-            if self.estimate_depth:
-                depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
-        run = (self.model.full_forward_streaming if self.estimate_depth
-               else self.model.forward_streaming)
-        out = run(imgs, depth_imgs, m, self.ov_weight, self._vox, self._l2g)
-        if self.membership is not None:
-            merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1)
-            out["pred"] = fusion_rule(merged, out["bin_occ"]).to(torch.uint8)
         te = self._zero_embed if text_embed is None else torch.as_tensor(
             text_embed, dtype=torch.float32, device=self._zero_embed.device)
-        out["retrieval"] = retrieval_map(out["feat_occ"], te)
+        out = self.step(imgs, depth_imgs, m, self.ov_weight, self._vox, self._l2g, te)
         early = out.pop("early_vox")
         l2g = m["lidarego2global"].to(torch.float32)
         self._vox = torch.cat([early[:, None].to(self._vox.dtype), self._vox[:, :-1]], 1)
