@@ -140,7 +140,7 @@ Phases; any failed check raises, so the exit code is non-zero:
      where the plain step repeats bit for bit), then 12 warm steps of
      each, alternating, medians with their spread; (b) two gloo ranks
      sharing the card, tiny, one step, against the same two ranks on the
-     CPU; (c) a main path: `train --preset veon_b --dist-num-processes 2
+     CPU, run beside (c); (c) a main path: `train --preset veon_b --dist-num-processes 2
      --dist-coordinator` fp32 as two processes sharing the card over gloo
      on 4 frames of the shard with LiDAR sweeps, 2 steps per rank: #3 once
      per step per rank, rank 0 alone writes, the ranks end bit-equal. The
@@ -176,13 +176,40 @@ Phases; any failed check raises, so the exit code is non-zero:
      `--raw-uint8`, a main path: 4 drive calls through each program beside
      a live `TemporalSession`, the cache rolled by hand: outputs equal,
      kernel #1 once per call; the float program and the live step timed
-     in turns;
+     in turns. The three `export` calls of 38-39 run at once, each in a
+     process of this script;
  40. `benchmark` through the CLI, a main path: live F=1 bf16, `--num-temporal
      2` bf16, `--artifact` on both programs; the JSON lines and the F=1
      artifact-to-live ratio (phases 38-39 also time each program in turns
      with its live module);
  41. `serve_exported` of the F=1 program, a main path: 2 requests through
      `TensorClient`, pred equal to the live grid, kernel #1 once each.
+ 42. camera sharding (`serve/camshard.py`), ranks of this script
+     (`--dp-worker cs_*`) sharing the card over gloo: (a) the tiny preset
+     in fp32 at S=2 and S=3: the stacked presort on the card integer-equal
+     to the CPU's, the presorted sharded forward against the unsharded one
+     on the CPU at 2e-4 (#2 once per rank), #2 against its plain version on
+     each rank's stream; one SGD step on a 2 x 2 (batch x cam) grid, its
+     parameter deltas equal to the unsharded step's; (b) a main path:
+     `serve_entry(cam_group=)` at VEON-B width in bf16 on 3 ranks, 3 frames
+     through a `TensorServer` on rank 0, the others following, #2 once per
+     frame per rank and #1 never; frame 0 in fp32 on the same ranks
+     against `entry`'s unsharded one (class grid >= 0.999 off near-ties,
+     feat_occ and sem_occ_raw within 1e-3), each bf16 frame's class grid
+     >= 0.999 off near-ties against the same weights run shard by shard in
+     one process, frame 0's outputs within 1e-2 of their largest value
+     (bf16 GEMMs round by how many cameras they batch, so the
+     unsharded bf16 frame is reported, not held), ms per frame with the
+     all-reduce's share, each rank's peak, #2 timed
+     on a rank's stream; (c) a main path: a T=2
+     `TemporalSession(cam_group=)` on 2 ranks, 4 drive calls against
+     `temporal_entry`'s unsharded session, #2 once per call per rank; (d) a
+     main path: 2 sharded `train_entry`-recipe steps on 2 ranks, #3 once per
+     step per rank, losses within rtol 1e-3 of the unsharded steps, #3
+     timed on a rank's streams. (b) runs alone; (a), (c) and (d) run
+     beside phase 33 (which times nothing), their ranks started before it
+     and awaited after it, so their times are contended and held to
+     nothing; #3 is timed after (b).
 Phases 11-12 serve through the CLI's handler, which computes in the
 preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
@@ -3248,16 +3275,39 @@ def temporal_cli_phase(root, frames=4):
     return res
 
 
-def _spawn_ranks(argvs, work, timeout=300):
-    """This script's `--dp-worker` processes, one per argv, all started at
-    once with their output in `work`; waits for all, and kills every one
-    that is left as soon as one fails or the timeout passes. Returns the
-    outputs."""
+# every rank process this script started, killed at its exit if still running
+_RANKS = []
+
+
+def _start_ranks(argvs, work, timeout=300):
+    """Start this script's `--dp-worker` processes, one per argv, all at
+    once with their output in `work`: the handle `_wait_ranks` takes, whose
+    timeout counts from now."""
     logs = [open(os.path.join(work, f"rank{i}.log"), "w+") for i in range(len(argvs))]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
                                *map(str, a)], stdout=f, stderr=subprocess.STDOUT)
              for a, f in zip(argvs, logs)]
-    deadline, failed = time.time() + timeout, None
+    _RANKS.extend(procs)
+    return procs, logs, time.time() + timeout
+
+
+def _kill_ranks():
+    for p in _RANKS:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def _spawn_ranks(argvs, work, timeout=300):
+    """`_start_ranks` and `_wait_ranks`."""
+    return _wait_ranks(_start_ranks(argvs, work, timeout))
+
+
+def _wait_ranks(handle):
+    """Wait for the processes of `_start_ranks`, and kill every one that is
+    left as soon as one fails or the timeout passes. Returns the outputs."""
+    procs, logs, deadline = handle
+    failed = None
     while any(p.poll() is None for p in procs):
         failed = next((i for i, p in enumerate(procs) if p.poll() not in (None, 0)), None)
         if failed is not None or time.time() > deadline:
@@ -3380,7 +3430,8 @@ def data_parallel_phase(root, rounds=12):
     the card over gloo (gloo all-reduces CUDA tensors through the host),
     tiny preset, one step on one row each of a B=2 batch, against the same
     two ranks on the CPU: the ranks bit-equal to each other, card against
-    CPU within phase 26's tolerance, #3 once per rank. (c) `train --preset
+    CPU within phase 26's tolerance, #3 once per rank; its ranks run
+    beside (c), whose times are informational. (c) `train --preset
     veon_b --dist-num-processes 2 --dist-coordinator` fp32 as two processes
     sharing the card (over gloo, see `_dp_cli_worker`) on the first 4
     frames of the shard with LiDAR sweeps: 2 steps per rank, #3 once per
@@ -3473,35 +3524,23 @@ def data_parallel_phase(root, rounds=12):
 
     work = tempfile.mkdtemp(prefix="veon_dp")
     try:
-        ranks = {}
-        for device in ("cuda", "cpu"):
-            port = _free_port()
-            _spawn_ranks([("step", r, port, device, os.path.join(work, f"{device}{r}.pt"))
-                          for r in range(2)], work)
-            ranks[device] = [torch.load(os.path.join(work, f"{device}{r}.pt")) for r in range(2)]
-        card, cpu = ranks["cuda"], ranks["cpu"]
-        for k in ("params", "buffers", "mu", "ema"):
-            if not all(torch.equal(card[0][k][n], card[1][k][n]) for n in card[0][k]):
-                raise AssertionError(f"two ranks on the card: {k} differ between the ranks")
-        if card[0]["losses"] != card[1]["losses"]:
-            raise AssertionError(f"two ranks on the card: losses {card[0]['losses']} vs "
-                                 f"{card[1]['losses']}")
-        for r in range(2):
-            expect_launches(card[r]["launches"], {k: 1 if k == "bev_pool_sorted2" else 0
-                                                  for k in card[r]["launches"]},
-                            f"two ranks on the card: rank {r}")
-        diffs = [_compare_runs(cpu[r], card[r], f"two gloo ranks, rank {r}") for r in range(2)]
-        out["two_ranks_gloo"] = dict(diffs=diffs, losses=cpu[0]["losses"])
-        log(f"two gloo ranks sharing the card, tiny fp32, one step each: ranks bit-equal, card "
-            f"vs two CPU ranks {[{k: float(f'{v:.3g}') for k, v in d.items()} for d in diffs]}, "
-            f"averaged losses { {k: round(v, 6) for k, v in cpu[0]['losses'].items()} }; #3 once "
-            "per rank")
-
+        # (b): the card's ranks and the CPU's at once, beside (c): nothing of
+        # (b) is timed
+        port = {"cuda": _free_port()}
+        while (p := _free_port()) == port["cuda"]:
+            pass
+        port["cpu"] = p
+        work_b = os.path.join(work, "b")
+        os.makedirs(work_b)
+        ranks_b = _start_ranks([("step", r, port[device], device,
+                                 os.path.join(work_b, f"{device}{r}.pt"))
+                                for device in ("cuda", "cpu") for r in range(2)], work_b)
         pkl = train_shard(root, 4)
         tw = tempfile.mkdtemp(prefix="veon_dptrain", dir=root)
-        port = _free_port()
+        while (port_c := _free_port()) in port.values():
+            pass
         t = time.perf_counter()
-        logs = _spawn_ranks([("cli", r, port, root, pkl, tw, os.path.join(work, f"cli{r}.pt"))
+        logs = _spawn_ranks([("cli", r, port_c, root, pkl, tw, os.path.join(work, f"cli{r}.pt"))
                              for r in range(2)], work, timeout=600)
         cli_s = time.perf_counter() - t
         recs = [torch.load(os.path.join(work, f"cli{r}.pt")) for r in range(2)]
@@ -3537,6 +3576,26 @@ def data_parallel_phase(root, rounds=12):
             + ", ".join(f"rank {r} {[round(t, 3) for t in rec['step_ms']]} (peak "
                         f"{max(rec['peaks']) / 2**30:.3f} GiB)" for r, rec in enumerate(recs))
             + f"; {cli_s:.1f} s for both processes")
+        _wait_ranks(ranks_b)
+        ranks = {device: [torch.load(os.path.join(work_b, f"{device}{r}.pt")) for r in range(2)]
+                 for device in ("cuda", "cpu")}
+        card, cpu = ranks["cuda"], ranks["cpu"]
+        for k in ("params", "buffers", "mu", "ema"):
+            if not all(torch.equal(card[0][k][n], card[1][k][n]) for n in card[0][k]):
+                raise AssertionError(f"two ranks on the card: {k} differ between the ranks")
+        if card[0]["losses"] != card[1]["losses"]:
+            raise AssertionError(f"two ranks on the card: losses {card[0]['losses']} vs "
+                                 f"{card[1]['losses']}")
+        for r in range(2):
+            expect_launches(card[r]["launches"], {k: 1 if k == "bev_pool_sorted2" else 0
+                                                  for k in card[r]["launches"]},
+                            f"two ranks on the card: rank {r}")
+        diffs = [_compare_runs(cpu[r], card[r], f"two gloo ranks, rank {r}") for r in range(2)]
+        out["two_ranks_gloo"] = dict(diffs=diffs, losses=cpu[0]["losses"])
+        log(f"two gloo ranks sharing the card, tiny fp32, one step each: ranks bit-equal, card "
+            f"vs two CPU ranks {[{k: float(f'{v:.3g}') for k, v in d.items()} for d in diffs]}, "
+            f"averaged losses { {k: round(v, 6) for k, v in cpu[0]['losses'].items()} }; #3 once "
+            "per rank")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["launches_sorted2"] = launches_sorted2
@@ -4136,8 +4195,9 @@ def in_turns(live, program, args, iters, float_idx=(0, 1)):
     return ms, made["bev_pool_pooled"]
 
 
-def export_f1_phase(work):
-    """38. `export --preset veon_b` (F=1, bf16) through the CLI, a main path:
+def export_f1_phase(made):
+    """38. `export --preset veon_b` (F=1, bf16) through the CLI (`made`, the
+    call's (path, seconds, launches) from `_export_worker`), a main path:
     the `.pt2` program loaded back and run on the live `FrameServer`'s
     frame, rig metas and open-vocabulary matrix (the same seeded weights):
     the class grid equal to the live one, kernel #1 once per program call
@@ -4148,7 +4208,7 @@ def export_f1_phase(work):
     from veon_tpu_torch.utils.export import _serving_cfg
 
     phase_base()
-    path, _out, seconds, launches = run_cli(["export", "--preset", "veon_b", "--work-dir", work])
+    path, seconds, launches = made
     expect_launches(launches, {k: 0 for k in launches}, "export F=1")
     program, res = _artifact(path, seconds, "export F=1 veon_b bf16")
     server, (imgs, depth_imgs) = entry(_serving_cfg("veon_b", compute_dtype="bfloat16"),
@@ -4217,9 +4277,10 @@ def _t2_compare(program, session, reqs, kernels, frames, what):
     return {"max_abs_diff": diffs, "launches_pooled": sum(calls)}
 
 
-def export_t2_phase(work, calls=4):
+def export_t2_phase(made, calls=4):
     """39. `export --preset veon_b --num-temporal 2` in the preset's dtype
-    (fp32) and with `--raw-uint8`, through the CLI, a main path: each
+    (fp32) and with `--raw-uint8`, through the CLI (`made`: {raw: the
+    call's (path, seconds, launches)} from `_export_worker`), a main path: each
     program loaded back and driven by `calls` calls of `example_drive`
     beside a live `TemporalSession` on the same seeded weights (the float
     program on the drive's frames, the uint8 one on uint8 frames from
@@ -4236,10 +4297,7 @@ def export_t2_phase(work, calls=4):
     kernels = reset_launches()
     path = None
     for raw in (False, True):
-        # --raw-uint8 writes the same file name: into a directory of its own
-        argv = ["export", "--preset", "veon_b", "--num-temporal", "2", "--work-dir",
-                os.path.join(work, "raw_uint8") if raw else work]
-        p, _out, seconds, launches = run_cli(argv + (["--raw-uint8"] if raw else []))
+        p, seconds, launches = made[raw]
         expect_launches(launches, {k: 0 for k in launches}, "export T=2")
         what = f"export T=2 veon_b fp32{' raw-uint8' if raw else ''}"
         program, r = _artifact(p, seconds, what)
@@ -4345,13 +4403,665 @@ def serve_exported_phase(f1_path, server, frame):
             "launches_pooled": sum(calls)}
 
 
+# --------------------------------------------------------------------------
+# phase 42: camera sharding, ranks of this script sharing the card over gloo
+
+
+class _SGD:
+    """Plain SGD in the optimizer interface of the stage-2 step (the JAX
+    camera-sharding test's optax.sgd): a parameter's delta is -lr times its
+    gradient, so a wrong cross-camera combine shows as a 2x delta."""
+
+    lr = 0.1
+
+    def init(self, params):
+        from veon_tpu_torch.train.step import AdamState
+
+        return AdamState(0, {}, {})
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        from veon_tpu_torch.train.step import AdamState
+
+        for n, p in params.items():
+            p.add_(grads[n], alpha=-self.lr)
+        return AdamState(state.count + 1, {}, {})
+
+
+def _sgd_step(model, cfg, batch, membership, cam_group=None):
+    """(losses, parameter deltas) of one SGD step of the stage-2 step."""
+    from veon_tpu_torch.train import step as tstep
+
+    tx = _SGD()
+    state = tstep.create_train_state(model, tx)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _, losses = tstep.make_train_step(model, tx, cfg, membership, cam_group=cam_group)(state,
+                                                                                       batch)
+    return ({k: float(v) for k, v in losses.items()},
+            {n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters()})
+
+
+def _cs_sum_timer(times):
+    """`collectives.cam_sum` that appends its host-clock ms (the card
+    synchronized on both sides) and the grid's dtype to `times`: the lift's
+    all-reduce share."""
+    from veon_tpu_torch import collectives
+
+    def cam_sum(x, cg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = collectives.cam_sum(x, cg)
+        torch.cuda.synchronize()
+        times.append(((time.perf_counter() - t) * 1e3, str(x.dtype).replace("torch.", "")))
+        return y
+
+    return cam_sum
+
+
+def _cs_tiny_worker(rank, port, out):
+    """Phase 42(a) and the 2 x 2 step, rank `rank` of 4 sharing the card:
+    weights seeded on the CPU (one init on every rank and on the CPU).
+    (1) One SGD step of the tiny preset in fp32 on a (batch x cam) = 2 x 2
+    grid, each batch row one row of a B=2 batch, against the unsharded step
+    on the whole batch on the card, taken by rank 0 before the group opens
+    (BatchNorm and the step average over any open group): losses at 2e-4,
+    deltas at rtol 5e-3 / atol 1e-5 (the JAX test's), #3 once per rank.
+    (2) On the groups of the first 2 and 3 ranks: the stacked presort on the
+    card integer-equal to the CPU's; the presorted sharded forward against
+    the unsharded forward on the CPU (plain versions) at 2e-4, #2 once per
+    rank and nothing else; kernel #2 against its plain version on the
+    rank's own stream."""
+    import torch.distributed as dist
+
+    from veon_tpu_torch.cli.shapes import example_batch
+    from veon_tpu_torch.collectives import CamGroup, cam_groups
+    from veon_tpu_torch.entry import _ov_weight, _with_presort, build_model
+    from veon_tpu_torch.lift.lss import two_hot_depth
+    from veon_tpu_torch.ops import bev_pool as bp
+    from veon_tpu_torch.model.camshard import prepare_camshard_metas
+    from veon_tpu_torch.serve.camshard import make_camera_sharded_forward
+    from veon_tpu_torch.train import distributed as D
+
+    rank, dev = int(rank), torch.device("cuda")
+    cfg = tiny_train_cfg()
+    cpu_model = build_model(cfg, torch.device("cpu"), 0, None)
+    sd = cpu_model.state_dict()
+
+    def card_model():
+        m = build_model(cfg, dev, 0, None)
+        m.load_state_dict(sd)
+        return m
+
+    imgs, _d, metas = example_batch(cfg, B=2, device=dev)
+    nx, ny, nz = cfg.grid.size
+    rng = np.random.default_rng(7)
+    ovw, membership = _ov_weight(cfg, dev)
+    batch = dict(imgs=imgs, depth=far_depth(cfg, B=2).to(dev), metas=metas,
+                 voxel_semantics=torch.from_numpy(rng.integers(0, 18, (2, nx, ny, nz)).astype(
+                     np.int32)).to(dev),
+                 mask_camera=torch.ones(2, nx, ny, nz, dtype=torch.int32, device=dev),
+                 ov_weight=ovw, epoch=0)
+    res = {}
+    if rank == 0:
+        res["step_ref"] = _sgd_step(card_model(), cfg, batch, membership)
+    D.init_group(f"localhost:{port}", 4, rank, device="cuda", backend="gloo")
+    cg = cam_groups(2, 2)
+    row = cg.batch_index
+    mine = {k: v[row:row + 1] for k, v in batch.items() if torch.is_tensor(v) and v.shape[0] == 2
+            and k != "ov_weight"}
+    mine.update(ov_weight=ovw, epoch=0, metas=prepare_camshard_metas(
+        cfg, {k: v[row:row + 1] for k, v in metas.items()}, 2))
+    kernels = reset_launches()
+    res["step"] = _sgd_step(card_model().set_cam_group(cg), cfg, mine, membership, cg)
+    res["step_launches"] = {k: fn.launches for k, fn in kernels.items()}
+
+    groups = {S: dist.new_group(list(range(S))) for S in (2, 3)}
+    imgs1, depth1, metas1 = example_batch(cfg, device=dev)
+    cpu_in = example_batch(cfg, device="cpu")
+    with torch.no_grad():
+        want = cpu_model(cpu_in[0], cpu_in[1], _with_presort(cpu_model, cpu_in[2]), ovw.cpu())
+    for S in (2, 3):
+        if rank >= S:
+            continue
+        pre = prepare_camshard_metas(cfg, metas1, S, presort=True)
+        pre_cpu = prepare_camshard_metas(cfg, cpu_in[2], S, presort=True)
+        for k in ("order", "rk_sorted", "ranks"):
+            if not torch.equal(pre["lift_sorted"][k].cpu(), pre_cpu["lift_sorted"][k]):
+                raise AssertionError(f"S={S} stacked presort {k} differs card vs CPU")
+        fwd = make_camera_sharded_forward(card_model(), CamGroup(groups[S], S, rank), "forward")
+        kernels = reset_launches()
+        with torch.no_grad():
+            got = fwd(imgs1, depth1, pre, ovw)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        expect_launches(launches, {k: int(k == "bev_pool_sorted") for k in launches},
+                        f"tiny S={S} sharded forward rank {rank}")
+        err = {}
+        for k, w in want.items():
+            torch.testing.assert_close(got[k].cpu(), w, rtol=2e-4, atol=2e-4, msg=k)
+            err[k] = float((got[k].cpu() - w).abs().max())
+        # kernel #2 against its plain version on this rank's stream
+        ls = pre["lift_sorted"]
+        B, N, D_, h, w = ls["ranks"].shape
+        r = np.random.default_rng(rank)
+        feat = torch.from_numpy(r.standard_normal((B, N // S, h, w, 32)).astype(np.float32)).to(dev)
+        dist_w = two_hot_depth(torch.from_numpy(r.uniform(1.0, 44.0, (B, N // S, h, w)).astype(
+            np.float32)), cfg.grid).to(dev)
+        vals = bp.presorted_vals(dist_w, feat, ls["order"][rank]).contiguous()
+        num_cells = int(np.prod(cfg.grid.size))
+        k2 = bp.bev_pool_sorted(vals, ls["rk_sorted"][rank], num_cells)
+        plain = bp.bev_pool_sorted_plain([(vals, ls["rk_sorted"][rank])], num_cells, torch.float32)
+        check_kernel(k2, plain, plain, torch.float32, f"#2 on rank {rank}'s S={S} stream")
+        res[f"forward{S}"] = dict(max_abs_err=err, launches=launches,
+                                  kernel2_max_abs_err=float((k2 - plain).abs().max()),
+                                  stream_rows=int(ls["order"].shape[1]))
+    D.shutdown()
+    torch.save(res, out)
+
+
+def _cs_frames(cfg, n):
+    """`n` distinct full frames of the example rig (the example images
+    scaled frame by frame), the same on every rank."""
+    from veon_tpu_torch.cli.shapes import example_batch_full
+
+    imgs, depth_imgs, _ = example_batch_full(cfg, device="cuda")
+    return [(imgs * (1.0 + 0.25 * i), depth_imgs * (1.0 - 0.1 * i)) for i in range(n)]
+
+
+def _cs_serve_worker(rank, port, sock, out):
+    """Phase 42(b), rank `rank` of 3 sharing the card: `serve_entry` at
+    VEON-B width in bf16 (seeded weights) with `cam_group` over the 3
+    ranks, rank 0's handler on a `TensorServer` answering 3 frames from a
+    `TensorClient`, ranks 1-2 in `follow()`; launches read around exactly
+    those frames (#2 once per frame per rank, nothing else); the lift's
+    all-reduce timed (`_cs_sum_timer`); each rank's peak memory.
+
+    Rank 0 holds each frame against `entry`'s FrameServer on the same
+    weights and open-vocabulary matrix, class grids off the reference's
+    near-ties (margin 1e-3). In fp32, frame 0 through a fp32
+    `serve_entry(cam_group=)` on the same ranks against the unsharded fp32
+    frame: class grid >= 0.999, feat_occ and sem_occ_raw within 1e-3. In
+    bf16 a GEMM's rounding depends on how many cameras it batches (cuBLAS
+    picks its kernels by shape), so the unsharded frame is not the bar:
+    each bf16 frame is held at >= 0.999 against the same weights run shard
+    by shard in rank 0's one process (`_cs_blockwise`: each 2-camera block
+    alone, the grids summed in bf16), with frame 0's feat_occ and
+    sem_occ_raw within 1e-2 of their largest value: that leaves the
+    group's bf16 all-reduce and the ranks as the difference. The
+    agreement with the unsharded frame, and with the floor (the unsharded
+    model with only its depth tower run on 2 cameras at a time), is
+    reported. Rank 0 then times kernel #2 on its stream against the plain
+    version and index_add_."""
+    from veon_tpu_torch.collectives import cam_groups
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import entry, serve_entry
+    from veon_tpu_torch.lift import lss
+    from veon_tpu_torch.model.veon import fused_classes
+    from veon_tpu_torch.ops import bev_pool as bp
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.serve.server import TensorServer
+    from veon_tpu_torch.train import distributed as D
+
+    rank, S = int(rank), 3
+    D.init_group(f"localhost:{port}", S, rank, device="cuda", backend="gloo")
+    cg = cam_groups(1, S)
+    cfg = presets.veon_b(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    handler, required, _expect, exclusive = serve_entry(cfg, device="cuda", seed=0, cam_group=cg)
+    torch.cuda.synchronize()
+    res = dict(setup_s=time.perf_counter() - t0)
+    server, membership = handler.server, handler.server.membership
+    frames = _cs_frames(cfg, 3)
+
+    def unsharded(c, ovw, shards=0):
+        """Rank 0's unsharded FrameServer of config c: per frame, its class
+        grid, near-ties and voxel outputs (frame 0's); with `shards`, per
+        frame, the class grid of the floor (its depth tower on each shard's
+        cameras at a time) and the blockwise outputs (`_cs_blockwise`)."""
+        ref_server, _ = entry(c, device="cuda", seed=0)
+        ref_server.ov_weight = ovw
+        rm, refs = ref_server.model, []
+        with torch.no_grad():
+            for im, d in frames[:3 if shards else 1]:
+                o = ref_server.outputs(im, d)
+                r = dict(pred=fused_classes(o, membership).cpu(),
+                         tie=near_ties(o, membership).cpu(),
+                         out={k: o[k] for k in ("feat_occ", "sem_occ_raw")} if not refs else None)
+                if shards:
+                    n = d.shape[2] // shards
+                    dch = torch.cat([rm.estimate_depth(d[:, :, j:j + n])
+                                     for j in range(0, d.shape[2], n)], 2)
+                    r["floor"] = fused_classes(rm(im, dch, ref_server.metas, ovw),
+                                               membership).cpu()
+                    b = _cs_blockwise(rm, shards, im, d, server.metas, ovw)
+                    r["block"] = dict(pred=fused_classes(b, membership).cpu(),
+                                      tie=near_ties(b, membership).cpu(),
+                                      out={k: b[k] for k in ("feat_occ", "sem_occ_raw")}
+                                      if not refs else None)
+                refs.append(r)
+                del o
+        del ref_server, rm
+        gc.collect()
+        torch.cuda.empty_cache()
+        return refs
+
+    def compare(pred, got_out, r):
+        return dict(agreement_off_ties=float((pred.int() == r["pred"])[~r["tie"]].float().mean()),
+                    near_tie_share=float(r["tie"].float().mean()),
+                    max_abs_diff={k: float((got_out[k] - v).abs().max())
+                                  for k, v in r["out"].items()} if got_out else None,
+                    max_abs_ref={k: float(v.abs().max()) for k, v in r["out"].items()}
+                    if got_out else None)
+
+    ref = unsharded(cfg, server.ov_weight, shards=S) if rank == 0 else None
+    sums = []
+    lss.cam_sum = _cs_sum_timer(sums)
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_launches()
+    if rank == 0:
+        srv = TensorServer(handler, sock, required=required, exclusive=exclusive)
+        srv.start()
+        rts, sms, preds = [], [], []
+        try:
+            with TensorClient(sock) as c:
+                for im, d in frames:
+                    t = time.perf_counter()
+                    resp = c.infer(imgs=im.cpu().numpy(), depth_imgs=d.cpu().numpy())
+                    rts.append((time.perf_counter() - t) * 1e3)
+                    sms.append(float(np.asarray(resp["server_ms"]).reshape(-1)[0]))
+                    preds.append(torch.from_numpy(np.asarray(resp["pred"])))
+        finally:
+            srv.stop()
+            handler.close()
+        res.update(round_trip_ms=rts, server_ms=sms)
+    else:
+        handler.follow()
+    torch.cuda.synchronize()
+    res["launches"] = {k: fn.launches for k, fn in kernels.items()}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["allreduce_ms"] = list(sums)
+    expect_launches(res["launches"], {k: 3 * int(k == "bev_pool_sorted") for k in res["launches"]},
+                    f"serve --cam-shards 3 rank {rank}")
+    with torch.no_grad():
+        got0 = server.outputs(*frames[0])
+    del handler, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    # frame 0 in fp32 on the same ranks
+    cfg32 = presets.veon_b()
+    h32, *_ = serve_entry(cfg32, device="cuda", seed=0, cam_group=cg)
+    with torch.no_grad():
+        got32 = h32.server.outputs(*frames[0])
+    ovw32 = h32.server.ov_weight
+    del h32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        bf16 = [dict(blockwise=compare(p, got0 if i == 0 else None, r["block"]),
+                     unsharded=compare(p, got0 if i == 0 else None, r),
+                     floor_agreement_off_ties=float((p.int() == r["floor"])[~r["tie"]]
+                                                    .float().mean()))
+                for i, (p, r) in enumerate(zip(preds, ref))]
+        ref32 = unsharded(cfg32, ovw32)[0]
+        fp32 = compare(fused_classes(got32, membership).cpu(), got32, ref32)
+        res.update(bf16=bf16, fp32=fp32)
+        log(f"serve --cam-shards 3: bf16 {bf16}, fp32 {fp32}")
+        low = [f["blockwise"]["agreement_off_ties"] for f in bf16
+               if f["blockwise"]["agreement_off_ties"] < 0.999]
+        if low:
+            raise AssertionError(f"sharded bf16 class grid agrees with the blockwise one on {low} "
+                                 "off near-ties (< 0.999)")
+        b0 = bf16[0]["blockwise"]
+        far = {k: v for k, v in b0["max_abs_diff"].items() if not v <= 1e-2 * b0["max_abs_ref"][k]}
+        if far:
+            raise AssertionError(f"sharded bf16 frame 0 differs from the blockwise one by {far} "
+                                 "(> 1e-2 of its largest value)")
+        if fp32["agreement_off_ties"] < 0.999:
+            raise AssertionError(f"sharded fp32 class grid agrees on "
+                                 f"{fp32['agreement_off_ties']} off near-ties (< 0.999)")
+        far = {k: v for k, v in fp32["max_abs_diff"].items() if not v <= 1e-3}
+        if far:
+            raise AssertionError(f"sharded fp32 frame differs from the unsharded by {far} (> 1e-3)")
+        # kernel #2 on this rank's stream: time, plain, library, bound
+        ls = _cs_stacked_presort(cfg, S)
+        order, rk = ls["order"][0], ls["rk_sorted"][0]
+        B, N, D_, h, w = ls["ranks"].shape
+        r = np.random.default_rng(5)
+        feat = torch.from_numpy(r.standard_normal((B, N // S, h, w, cfg.propagation.dim)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        dist_w = lss.two_hot_depth(torch.from_numpy(r.uniform(1.0, 44.0, (B, N // S, h, w)).astype(
+            np.float32)), cfg.grid).to("cuda", torch.bfloat16)
+        vals = bp.presorted_vals(dist_w, feat, order).contiguous()
+        num_cells = int(np.prod(cfg.grid.size))
+        got = bp.bev_pool_sorted(vals, rk, num_cells)
+        plain = bp.bev_pool_sorted_plain([(vals, rk)], num_cells, torch.bfloat16)
+        check_kernel(got, plain, bp.bev_pool_sorted_plain([(vals, rk)], num_cells, torch.float32),
+                     torch.bfloat16, "#2 on rank 0's serving stream")
+        res["kernel2"] = dict(_time_case(
+            "bev_pool_sorted shard bf16", lambda: bp.bev_pool_sorted(vals, rk, num_cells),
+            lambda: bp.bev_pool_sorted_plain([(vals, rk)], num_cells, torch.bfloat16),
+            [(vals, rk)], num_cells, cfg.propagation.dim, 2),
+            max_abs_err=float((got.float() - plain.float()).abs().max()))
+    D.shutdown()
+    torch.save(res, out)
+
+
+def _cs_blockwise(model, num_shards, imgs, depth_imgs, metas, ovw):
+    """The camera-sharded forward of `model` in this one process, with no
+    group: each shard's block of cameras (`local_inputs` of the stacked
+    presort `metas`) run on its own up to the lift's cross-camera sum, the
+    blocks' full-resolution grids summed in their dtype in shard order,
+    and the rest run once on that sum. Returns the voxel outputs."""
+    from veon_tpu_torch.collectives import CamGroup
+    from veon_tpu_torch.lift import lss
+    from veon_tpu_torch.model.camshard import local_inputs
+
+    grids, cam_sum = [], lss.cam_sum
+    try:
+        lss.cam_sum = lambda x, cg: grids.append(x) or x
+        for i in range(num_shards):
+            model.set_cam_group(CamGroup(None, num_shards, i))
+            model.full_forward(*local_inputs(imgs, depth_imgs, metas, model.cam_group), ovw)
+        total = grids[0]
+        for g in grids[1:]:
+            total = total + g
+        lss.cam_sum = lambda x, cg: total
+        return model.full_forward(*local_inputs(imgs, depth_imgs, metas, model.cam_group), ovw)
+    finally:
+        lss.cam_sum = cam_sum
+        model.set_cam_group(None)
+
+
+def _cs_stacked_presort(cfg, num_shards):
+    """The stacked per-shard presort of the example rig on the card."""
+    from veon_tpu_torch.cli.shapes import example_batch
+    from veon_tpu_torch.model.camshard import prepare_camshard_metas
+
+    return prepare_camshard_metas(cfg, example_batch(cfg, device="cuda")[2], num_shards,
+                                  presort=True)["lift_sorted"]
+
+
+def _cs_main2_worker(rank, port, out):
+    """Phases 42(c) and (d), rank `rank` of 2 sharing the card, VEON-B in
+    bf16 with seeded weights. (d)'s reference first: rank 0 takes 2
+    unsharded steps of `train_entry` before the group opens. (c) A T=2
+    `TemporalSession` with `cam_group` over both ranks on the stacked
+    presort of the drive's rig, 4 drive calls (#2 once per call per rank,
+    nothing else), against `temporal_entry`'s unsharded session on rank 0
+    (class grid off near-ties, max abs difference of feat_occ). (d) 2
+    sharded steps (the batch's keyegos pinned, #3 once per step per rank),
+    the losses against the unsharded ones within rtol 1e-3."""
+    from veon_tpu_torch.cli.shapes import example_drive
+    from veon_tpu_torch.collectives import cam_groups
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import (_ov_weight, build_model, temporal_entry, train_batch,
+                                      train_entry)
+    from veon_tpu_torch.lift import lss
+    from veon_tpu_torch.model.camshard import prepare_camshard_metas
+    from veon_tpu_torch.serve.streaming import TemporalSession
+    from veon_tpu_torch.train import distributed as D
+    from veon_tpu_torch.train import step as tstep
+
+    rank, dev = int(rank), torch.device("cuda")
+    cfg = presets.veon_b(compute_dtype="bfloat16")
+    res = {}
+    if rank == 0:
+        trainer, batch = train_entry(cfg, device="cuda", seed=0)
+        res["train_ref"] = [{k: float(v) for k, v in trainer(batch).items()} for _ in range(2)]
+        del trainer, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    D.init_group(f"localhost:{port}", 2, rank, device="cuda", backend="gloo")
+    cg = cam_groups(1, 2)
+
+    cfg_t = presets.veon_b(num_temporal=2, compute_dtype="bfloat16")
+    rig, reqs = example_drive(cfg_t, 4, device=dev, seed=0)
+    ovw, membership = _ov_weight(cfg_t, dev)
+    sess = TemporalSession(build_model(cfg_t, dev, 0, None), ovw, membership,
+                           rig_metas=prepare_camshard_metas(cfg_t, rig, 2, presort=True),
+                           cam_group=cg)
+    sums = []
+    lss.cam_sum = _cs_sum_timer(sums)
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_launches()
+    times, outs = [], []
+    for r in reqs:
+        t = time.perf_counter()
+        o = sess.infer(r["imgs"], r["depth_imgs"], {"lidarego2global": r["lidarego2global"]})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        outs.append(dict(pred=o["pred"].cpu(), feat_occ=o["feat_occ"] if rank == 0 else None))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(launches, {k: 4 * int(k == "bev_pool_sorted") for k in launches},
+                    f"streaming --cam-shards 2 rank {rank}")
+    res["streaming"] = dict(call_ms=times, launches=launches, allreduce_ms=list(sums),
+                            peak_bytes=torch.cuda.max_memory_allocated())
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref, ref_reqs = temporal_entry(cfg_t, device="cuda", seed=0, frames=4)
+        agree, diff = [], []
+        with torch.no_grad():
+            for r, got in zip(ref_reqs, outs):
+                o = ref.infer(r["imgs"], r["depth_imgs"], {"lidarego2global": r["lidarego2global"]})
+                off = ~near_ties(o, membership).cpu()
+                agree.append(float((got["pred"] == o["pred"].cpu())[off].float().mean()))
+                diff.append(float((got["feat_occ"] - o["feat_occ"]).abs().max()))
+        res["streaming"].update(agreement_off_ties=agree, feat_occ_max_abs_diff=diff)
+        del ref, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+        if min(agree) < 0.999:
+            raise AssertionError(f"sharded streaming grid agrees on {agree} off near-ties")
+
+    model = build_model(cfg, dev, 0, None).set_cam_group(cg)
+    _p, refl_membership = _ov_weight(cfg, dev)
+    tx = tstep.AdamW()
+    state = tstep.create_train_state(model, tx)
+    step = tstep.make_train_step(model, tx, cfg, refl_membership, cam_group=cg)
+    batch = train_batch(cfg, device=dev)
+    batch["metas"] = prepare_camshard_metas(cfg, batch["metas"], 2)
+    sums.clear()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_launches()
+    times, losses = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: float(v) for k, v in loss.items()})
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(launches, {k: 2 * int(k == "bev_pool_sorted2") for k in launches},
+                    f"train --cam-shards 2 rank {rank}")
+    res["train"] = dict(step_ms=times, losses=losses, launches=launches, allreduce_ms=list(sums),
+                        peak_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        for got, want in zip(losses, res["train_ref"]):
+            for k, w in want.items():
+                if not abs(got[k] - w) <= 1e-3 * abs(w) + 1e-5:
+                    raise AssertionError(f"sharded step loss {k} {got[k]} vs unsharded {w}")
+    D.shutdown()
+    torch.save(res, out)
+
+
+def _cs_kernel3_on_shard(cfg, metas, lss):
+    """Kernel #3 on rank 0's streams of a sharded train step (its 3
+    cameras' K-band and far-depth spray on `far_depth`, the whole rig's
+    keyegos) in bf16: against its plain version, then timed with the plain
+    version and index_add_ against its bound (`_time_case`)."""
+    from veon_tpu_torch.ops import bev_pool as bp
+
+    nl = cfg.data.num_cams // 2
+    m = {k: metas[k][:, 0, :nl] for k in ("sensor2keyegos", "intrins", "post_rots", "post_trans")}
+    args = (m["sensor2keyegos"], m["intrins"], m["post_rots"], m["post_trans"], metas["bda"])
+    metric = lss.min_pool_depth(far_depth(cfg)[:, 0, :nl].cuda(), 8)
+    lift = lss.LSSLift.from_config(cfg)
+    w1, r1, w2, r2 = lift.banded_streams(metric, *args)
+    if w2 is None:
+        raise AssertionError("no far-depth spray stream at this grid's depth bins")
+    h, w = metric.shape[-2:]
+    C = cfg.propagation.dim
+    feat = torch.from_numpy(np.random.default_rng(6).standard_normal((nl * h * w, C)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    pairs = [(vals, rk) for rk, vals in (bp.sorted_stream(wt.to(torch.bfloat16), feat, r)
+                                         for wt, r in ((w1, r1), (w2, r2)))]
+    flat = [t for pair in pairs for t in pair]
+    num_cells = int(np.prod(cfg.grid.size))
+    got = bp.bev_pool_sorted2(*flat, num_cells)
+    plain = bp.bev_pool_sorted_plain(pairs, num_cells, torch.bfloat16)
+    check_kernel(got, plain, bp.bev_pool_sorted_plain(pairs, num_cells, torch.float32),
+                 torch.bfloat16, "#3 on a shard's streams")
+    res = _time_case("bev_pool_sorted2 shard bf16", lambda: bp.bev_pool_sorted2(*flat, num_cells),
+                     lambda: bp.bev_pool_sorted_plain(pairs, num_cells, torch.bfloat16), pairs,
+                     num_cells, C, 2)
+    return dict(res, max_abs_err=float((got.float() - plain.float()).abs().max()))
+
+
+def _cs_argvs(work, group, sock=None):
+    """The `--dp-worker` argvs of phase 42's (name, kind, world) groups,
+    each on a free port of its own: {name: [argv per rank]}."""
+    argvs, ports = {}, set()
+    for name, kind, world in group:
+        while (port := _free_port()) in ports:
+            pass
+        ports.add(port)
+        argvs[name] = [(kind, r, port) + ((sock,) if name == "serve" else ())
+                       + (os.path.join(work, f"{name}{r}.pt"),) for r in range(world)]
+    return argvs
+
+
+def camshard_start():
+    """Start phase 42's untimed ranks in the background: (a) and the 2 x 2
+    step (`_cs_tiny_worker`, 4 ranks) beside (c) and (d)
+    (`_cs_main2_worker`, 2 ranks), whose times are contended and held to
+    nothing. `camshard_wait` waits for them."""
+    work = tempfile.mkdtemp(prefix="veon_cs_bg")
+    argvs = _cs_argvs(work, (("tiny", "cs_tiny", 4), ("main2", "cs_main2", 2)))
+    return dict(work=work, argvs=argvs, t=time.perf_counter(),
+                ranks=_start_ranks([a for v in argvs.values() for a in v], work, timeout=420))
+
+
+def camshard_wait(bg):
+    """The results of `camshard_start`'s ranks, once all have ended:
+    {"tiny": [per rank], "main2": [per rank], "seconds": since the start}."""
+    try:
+        _wait_ranks(bg["ranks"])
+        res = {name: [torch.load(a[-1], weights_only=False) for a in v]
+               for name, v in bg["argvs"].items()}
+    finally:
+        shutil.rmtree(bg["work"], ignore_errors=True)
+    res["seconds"] = round(time.perf_counter() - bg["t"], 1)
+    return res
+
+
+def camshard_phase(bg):
+    """Phase 42, camera sharding (`serve/camshard.py`): ranks of this script
+    (`--dp-worker cs_*`) sharing the card over gloo (NCCL takes one rank
+    per card; gloo sums through the host): (b) (`_cs_serve_worker`, 3
+    ranks) alone, since its frames are timed; then the results of (a),
+    (c) and (d) (`bg`, from `camshard_wait`) and #3 timed on a rank's
+    streams of the sharded step. Returns their results, with the launches
+    of #2 and #3 on the main paths (b)-(d) summed over the ranks."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.entry import train_batch
+    from veon_tpu_torch.lift import lss
+    from veon_tpu_torch.model.camshard import prepare_camshard_metas
+
+    work = tempfile.mkdtemp(prefix="veon_cs")
+    res = {k: bg[k] for k in ("tiny", "main2")}
+    secs = {"tiny+main2 (beside phase 33)": bg["seconds"]}
+    try:
+        t = time.perf_counter()
+        sock = os.path.join(socket_dir(), "s.sock")
+        argvs = _cs_argvs(work, (("serve", "cs_serve", 3),), sock)
+        try:
+            _spawn_ranks(argvs["serve"], work, timeout=420)
+        finally:
+            shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
+        res["serve"] = [torch.load(a[-1], weights_only=False) for a in argvs["serve"]]
+        secs["serve"] = round(time.perf_counter() - t, 1)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cfg = presets.veon_b(compute_dtype="bfloat16")
+    kernel3 = _cs_kernel3_on_shard(cfg, prepare_camshard_metas(
+        cfg, train_batch(cfg, device="cuda")["metas"], 2), lss)
+    tiny, serve, main2 = res["tiny"], res["serve"], res["main2"]
+    # the 2 x 2 step against the unsharded one on the card
+    want_losses, want_deltas = tiny[0]["step_ref"]
+    for r, t in enumerate(tiny):
+        losses, deltas = t["step"]
+        expect_launches(t["step_launches"], {k: int(k == "bev_pool_sorted2")
+                                             for k in t["step_launches"]}, f"2x2 step rank {r}")
+        for k, w in want_losses.items():
+            if not abs(losses[k] - w) <= 2e-4 * abs(w) + 1e-6:
+                raise AssertionError(f"2x2 step rank {r} loss {k} {losses[k]} vs {w}")
+        for n, w in want_deltas.items():
+            torch.testing.assert_close(deltas[n], w, rtol=5e-3, atol=1e-5, msg=f"2x2 delta {n}")
+    moved = max(float(d.abs().max()) for d in want_deltas.values())
+    if moved <= 1e-6:
+        raise AssertionError("the 2x2 step moved no parameter")
+    dtypes = {d for x in serve + [m["train"] for m in main2] for _ms, d in x["allreduce_ms"]}
+    out = dict(seconds=secs, allreduce_dtypes=sorted(dtypes), two_by_two=dict(
+        losses=tiny[0]["step"][0], max_abs_delta_diff=max(
+            float((t["step"][1][n] - w).abs().max()) for t in tiny for n, w in want_deltas.items()),
+        max_abs_delta=moved),
+        tiny_forward={f"rank{r}": {k: v for k, v in t.items() if k.startswith("forward")}
+                      for r, t in enumerate(tiny)},
+        serve=serve, streaming=[m["streaming"] for m in main2],
+        train=[m["train"] for m in main2], train_ref=main2[0]["train_ref"])
+    out["launches_sorted"] = (sum(s["launches"]["bev_pool_sorted"] for s in serve)
+                              + sum(m["streaming"]["launches"]["bev_pool_sorted"] for m in main2))
+    out["launches_sorted2"] = sum(m["train"]["launches"]["bev_pool_sorted2"] for m in main2)
+    s0 = serve[0]
+    log(f"phase 42 camera sharding ({secs} s): 2x2 tiny step losses {out['two_by_two']['losses']}"
+        f", max delta diff {out['two_by_two']['max_abs_delta_diff']:.3e} of "
+        f"{moved:.3e}; tiny S=2/3 forwards {out['tiny_forward']}")
+    log(f"serve --cam-shards 3 veon_b bf16: server ms {s0['server_ms']}, round trip ms "
+        f"{s0['round_trip_ms']}, all-reduce (ms, dtype) per rank "
+        f"{[s['allreduce_ms'] for s in serve]}, peaks GiB "
+        f"{[round(s['peak_bytes'] / 2**30, 3) for s in serve]}, launches "
+        f"{[s['launches'] for s in serve]}, setup s {[round(s['setup_s'], 1) for s in serve]}")
+    log(f"serve --cam-shards 3 bf16 per frame, against the blockwise one, the unsharded one "
+        f"and the floor (the unsharded depth tower on 2 cameras at a time): {s0['bf16']}; fp32 "
+        f"frame 0 against the unsharded one: {s0['fp32']}")
+    for name in ("streaming", "train"):
+        log(f"{name} --cam-shards 2 veon_b bf16: " + "; ".join(
+            f"rank {r}: " + ", ".join(f"{k} {v}" for k, v in m[name].items() if k != "losses")
+            for r, m in enumerate(main2)))
+    log(f"train --cam-shards 2 losses {out['train'][0]['losses']} vs unsharded {out['train_ref']}")
+    out["kernel3"] = kernel3
+    log(f"kernel #2 on a shard's stream: {s0['kernel2']}; #3: {kernel3}")
+    return out
+
+
+def _export_worker(out, *argv):
+    """Phases 38-39's `export` CLI call `argv` in a process of its own:
+    saves (the program's path, the call's host s, the launches it made) to
+    `out`."""
+    path, _out, seconds, launches = run_cli(list(argv))
+    torch.save((path, seconds, launches), out)
+
+
 def export_phases():
     """Phases 38-41 on one temporary work directory (the programs, ~6 GB,
-    deleted at the end)."""
+    deleted at the end). The three `export` calls (F=1, T=2, T=2
+    `--raw-uint8`, each writing into a directory of its own) run at once in
+    processes of this script (`--dp-worker export`): nothing times them
+    but their own host seconds, which are then contended."""
     work = tempfile.mkdtemp(prefix="veon_export")
     try:
-        f1_path, server, frame, f1 = export_f1_phase(work)
-        t2_path, t2 = export_t2_phase(work)
+        base = ["export", "--preset", "veon_b"]
+        argvs = {"f1": base, "t2": base + ["--num-temporal", "2"],
+                 "t2_raw": base + ["--num-temporal", "2", "--raw-uint8"]}
+        logs = os.path.join(work, "logs")
+        os.makedirs(logs)
+        _spawn_ranks([("export", os.path.join(logs, f"{k}.pt"), *a, "--work-dir",
+                       os.path.join(work, k)) for k, a in argvs.items()], logs, timeout=400)
+        made = {k: torch.load(os.path.join(logs, f"{k}.pt")) for k in argvs}
+        f1_path, server, frame, f1 = export_f1_phase(made["f1"])
+        t2_path, t2 = export_t2_phase({False: made["t2"], True: made["t2_raw"]})
         bench = benchmark_phase(f1_path, t2_path)
         served = serve_exported_phase(f1_path, server, frame)
     finally:
@@ -4430,11 +5140,15 @@ def main():
         new_presets = presets_phase(main_res["median_ms"])
         lap("15-16 weights, presets")
         precision = precision_phase(variables)
-        lap("17 precision")
         del variables
         gc.collect()
+        torch.cuda.empty_cache()
+        # phase 42's untimed ranks run beside the parity check, which times nothing
+        camshard_bg = camshard_start()
+        lap("17 precision")
         parity = parity_phase(ckpt_root)
-        lap("33 parity")
+        camshard_bg = camshard_wait(camshard_bg)
+        lap("33 parity (beside phase 42's untimed ranks)")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     gc.collect()
@@ -4493,6 +5207,8 @@ def main():
     lap("37 profiling")
     exported = export_phases()
     lap("38-41 export, benchmarks, serve_exported")
+    camshard = camshard_phase(camshard_bg)
+    lap("42 camera sharding")
 
     # launches on the main paths: the F=1 frames, the requests served from
     # converted weights and the new presets' frames, the zoe frames, calls
@@ -4503,7 +5219,9 @@ def main():
     # F=2 full-frustum temporal step (#2); phases 33-37: the parity, vis and
     # train --remat runs (#3), the REC_CROSS_ATTN=False frames (#1), the
     # lift microbench's calls (#2); phases 38-41: the exported programs'
-    # calls, the benchmarks' calls and the requests served from a program (#1)
+    # calls, the benchmarks' calls and the requests served from a program
+    # (#1); phase 42: every rank's sharded frames and streaming calls (#2)
+    # and sharded train steps (#3)
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
                                 + sum(weights["launches_per_request"])
                                 + new_presets["launches"]["bev_pool_pooled"]
@@ -4519,7 +5237,8 @@ def main():
             "bev_pool_sorted": (sorted_res["full_bf16"],
                                 train["full"]["launches"]["bev_pool_sorted"]
                                 + temporal_cli["launches_sorted"]
-                                + prof["launches"]["bev_pool_sorted"]),
+                                + prof["launches"]["bev_pool_sorted"]
+                                + camshard["launches_sorted"]),
             "bev_pool_sorted2": (sorted_res["band_spray_bf16"],
                                  train["banded"]["launches"]["bev_pool_sorted2"]
                                  + weights["drill_launches"]["bev_pool_sorted2"]
@@ -4530,7 +5249,7 @@ def main():
                                  + temporal_cli["launches_sorted2"]
                                  + data_parallel["launches_sorted2"]
                                  + parity["launches_sorted2"] + vis["launches_sorted2"]
-                                 + remat["launches_sorted2"]),
+                                 + remat["launches_sorted2"] + camshard["launches_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
                          + temporal["launches"]["ln_dense"])}
@@ -4558,7 +5277,7 @@ def main():
                    "temporal_train_parity": temporal_train_small,
                    "temporal_cli": temporal_cli, "data_parallel": data_parallel,
                    "parity": parity, "vis": vis, "remat": remat, "rec_options": rec_opts,
-                   "profiling": prof, "export": exported,
+                   "profiling": prof, "export": exported, "camshard": camshard,
                    "builds": {k: v["seconds"] for k, v in builds.items()}, "phase_s": laps,
                    "script_s": time.perf_counter() - script_t0},
                   f, indent=1)
@@ -4574,7 +5293,12 @@ def main():
     return 0
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase 32, started by _spawn_ranks
-        {"step": _dp_step_worker, "cli": _dp_cli_worker}[sys.argv[2]](*sys.argv[3:])
+    if sys.argv[1:2] == ["--dp-worker"]:  # a process of phase 32, 38-39 or 42 (_start_ranks)
+        {"step": _dp_step_worker, "cli": _dp_cli_worker, "cs_tiny": _cs_tiny_worker,
+         "cs_serve": _cs_serve_worker, "cs_main2": _cs_main2_worker,
+         "export": _export_worker}[sys.argv[2]](*sys.argv[3:])
         sys.exit(0)
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _kill_ranks()

@@ -307,3 +307,46 @@ def test_normalize_in_graph_on_card_equals_host_normalizers(card):
     for method, host in NORMALIZERS.items():
         got = normalize_in_graph(torch.from_numpy(u8).to(card), method).cpu().numpy()
         np.testing.assert_array_equal(got, host(u8), err_msg=method)
+
+
+@pytest.mark.parametrize("num_shards", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_kernel_on_a_shards_presorted_stream(card, num_shards, dtype):
+    """Camera sharding's lift on the card: the stacked per-shard presort
+    (`prepare_camshard_metas(presort=True)`) integer-equal to the CPU's;
+    on each shard's stream, padded past its own rows with rank num_cells,
+    kernel #2 (through `bev_pool_presorted`) against its plain version."""
+    from veon_tpu_torch.cli.shapes import example_batch
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.lift.lss import two_hot_depth
+    from veon_tpu_torch.model.camshard import prepare_camshard_metas
+
+    cfg = presets.veon_tiny_test()
+    want = prepare_camshard_metas(cfg, example_batch(cfg, device="cpu")[2], num_shards, True)
+    got = prepare_camshard_metas(cfg, example_batch(cfg, device=card)[2], num_shards, True)
+    for k in ("order", "rk_sorted", "ranks"):
+        assert torch.equal(got["lift_sorted"][k].cpu(), want["lift_sorted"][k]), k
+    ls = got["lift_sorted"]
+    num_cells = int(np.prod(cfg.grid.size))
+    B, N, D, h, w = ls["ranks"].shape
+    nl = N // num_shards
+    rng = np.random.default_rng(num_shards)
+    feat = torch.from_numpy(rng.standard_normal((B, nl, h, w, 32)).astype(np.float32)).to(card,
+                                                                                          dtype)
+    metric = torch.from_numpy(rng.uniform(1.0, 44.0, (B, nl, h, w)).astype(np.float32))
+    depth = two_hot_depth(metric, cfg.grid).to(card, dtype)
+    for i in range(num_shards):
+        order, rk = ls["order"][i], ls["rk_sorted"][i]
+        assert (rk[int((rk < num_cells).sum()):] == num_cells).all()
+        vals = bp.presorted_vals(depth, feat, order).contiguous()
+        before = bp.bev_pool_sorted.launches
+        out = bp.bev_pool_presorted(depth, feat, order, rk, ls["ranks"][:, i * nl:(i + 1) * nl],
+                                    cfg.grid.size)
+        torch.cuda.synchronize()
+        assert bp.bev_pool_sorted.launches == before + 1
+        want32 = bp.bev_pool_sorted_plain([(vals, rk)], num_cells, torch.float32)
+        got32 = out.float().reshape(num_cells, -1)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got32, want32, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(got32, want32, rtol=2 ** -7, atol=1e-5)

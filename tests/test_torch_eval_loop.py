@@ -19,8 +19,9 @@ config it built, which is what it would compute again.
   (`test_torch_slice.py`), idempotent.
 - `benchmark --eval` at the tiny preset: every leg positive, the last line
   one JSON record.
-- The refusals that remain: camera-sharded training, JAX's remat policy
-  factories, `export --native` and `export --raw-uint8` at F=1.
+- The refusals that remain: JAX's remat policy factories, `export
+  --native` and `export --raw-uint8` at F=1; `train --cam-shards 2` in a
+  world of one process raises JAX's error.
 """
 
 import dataclasses
@@ -204,8 +205,10 @@ def test_benchmark_eval_tiny_all_legs(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, error, item", [
-    pytest.param(["train", "--cam-shards", "2"], NotImplementedError, "item 16",
-                 id="argv0-item 16"),
+    # camera sharding is ported (item 16, test_torch_camshard.py); a world
+    # size that --cam-shards does not divide raises JAX's error
+    pytest.param(["train", "--cam-shards", "2"], ValueError,
+                 "1 devices not divisible by --cam-shards 2", id="argv0-item 16"),
     # remat policies are ported (item 11a); JAX's policy factories stay refused
     pytest.param(["train", "--remat", "save_only_these_names"], ValueError, "factory",
                  id="argv3-item 11a"),

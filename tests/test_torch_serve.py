@@ -427,15 +427,16 @@ def test_frame_server_checks_keys_and_raw_uint8(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported():
-    """--cam-shards > 1 raises; the CLI computes in the preset's dtype, as
-    the reference's `_build_cfg` (fp32 for veon_b), where `serve_entry`
-    keeps its bf16 default."""
+    """--cam-shards S needs a world of S processes (JAX's error, raised
+    before anything is built; the sharded path is `test_torch_camshard.py`);
+    the CLI computes in the preset's dtype, as the reference's `_build_cfg`
+    (fp32 for veon_b), where `serve_entry` keeps its bf16 default."""
     args = ["serve", "--preset", "veon_tiny_test", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="--cam-shards 2 needs that many devices; have 1"):
         main(args + ["--cam-shards", "2"])
     ns = argparse.Namespace(preset="veon_b", num_temporal=2, device="cpu", bpe_path=None,
                             raw_uint8=False, cam_shards=4, load_from=None, depth_load_from=None)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="--cam-shards 4 needs that many devices"):
         build_serve_handler(ns)
     from veon_tpu.cli.main import _build_cfg
     from veon_tpu_torch.cli.main import build_cfg

@@ -67,8 +67,26 @@ data-parallel with one process per card (`train/distributed.py`: the
 dir; --remat recomputes the scan-stacked blocks in the backward (full, the
 default, as the reference's `torch.utils.checkpoint`), none, or saves what
 a named policy says (`nn/rematutil.py`). `parity` exits 1 on a failed
-boundary. Still refused, each naming its ROADMAP item: --cam-shards > 1
-(16), `export --native` (25).
+boundary. Still refused, naming its ROADMAP item: `export --native` (25).
+
+--cam-shards S shards the six cameras over S processes
+(`serve/camshard.py`), started as the data-parallel ones are (torchrun, or
+--dist-* per process), one card per rank over NCCL:
+
+    torchrun --nproc-per-node 3 -m veon_tpu_torch.cli.main serve \
+        --preset veon_b --cam-shards 3 --socket /tmp/veon.sock
+    python -m veon_tpu_torch.cli.main train ... --cam-shards 2 \
+        --dist-coordinator localhost:29500 --dist-num-processes 4 \
+        --dist-process-id {0..3}
+
+`serve` takes a world of exactly S processes: rank 0 owns the socket and
+broadcasts each request, every rank computes. `train` lays the world out
+as (world / S) batch rows x S cam ranks, each row loading its own shard
+of the data. Ranks that share one card (a check, not a deployment: NCCL
+refuses them and gloo sums through the host) open their group with
+`train/distributed.py` `init_group(..., backend="gloo")` and build the
+handler with `entry.serve_entry(cam_group=...)` or the step with
+`train/step.py` `make_train_step(cam_group=...)`.
 """
 
 from __future__ import annotations
@@ -82,6 +100,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from .. import resolve_device, torch_dtype
@@ -90,6 +109,7 @@ from ..ckpt.from_jax import load_families, load_from_jax, variables_from_model
 from ..ckpt.io import (checkpoint_next_epoch, find_latest, list_checkpoints, load_checkpoint,
                        publish_checkpoint, save_checkpoint)
 from ..cli.shapes import example_batch, example_batch_full
+from ..collectives import cam_groups, data_parallel
 from ..configs import presets
 from ..data.create_infos import create_infos
 from ..data.loader import DataLoader
@@ -106,6 +126,7 @@ from ..nn.layers import init_random_
 from ..nn.rematutil import check_policy, parse_policy
 from ..nn.text import text_classifier  # noqa: F401  (the CLI's `_text_classifier`)
 from ..nn.zoedepth import ZoeDepthNK
+from ..model.camshard import prepare_camshard_metas
 from ..serve.server import TensorServer
 from ..train.depth_pretrain import depth_trainable, make_depth_pretrain_step, zoe_trainable
 from ..train.loop import _to_device, evaluate_occ, train_epochs, write_depth_cache
@@ -183,34 +204,55 @@ def build_model_and_params(cfg, san_ckpt=None, depth_ckpt=None, bpe_path=None, d
     return model, tower, ovw, membership, extras
 
 
-def build_serve_handler(args):
+def build_serve_handler(args, cam_group=None):
     """(handler, required request keys, expectation string, exclusive) for
     `cmd_serve`, built by `entry.serve_entry` on `checkpoint_model`; split
     out so tests and `chip_smoke.py` mount the handler on their own
-    `TensorServer`."""
-    if getattr(args, "cam_shards", 1) > 1:
-        raise NotImplementedError("camera-sharded serving (--cam-shards > 1) is not ported "
-                                  "yet: ROADMAP Queue 1 item 16")
+    `TensorServer`. --cam-shards S takes the open process group's S ranks
+    (a world of any other size raises JAX's error before anything is
+    built), unless `cam_group` names the ranks; every rank builds its
+    handler (`entry.ServeHandler`: the first rank serves, the others
+    follow)."""
+    shards = getattr(args, "cam_shards", 1)
+    if cam_group is None:
+        world = dist.get_world_size() if data_parallel() else 1
+        if world != shards:
+            raise ValueError(f"--cam-shards {shards} needs that many devices; have {world}")
+        if shards > 1:
+            cam_group = cam_groups(1, shards)
     cfg = build_cfg(args)
     variables, extras = load_checkpoints(cfg, args.load_from, args.depth_load_from)
     return serve_entry(cfg, device=args.device, model=checkpoint_model(cfg, variables, args.device),
                        text_tower=extras.get("text_tower"), bg_embed=extras.get("bg_embed"),
                        logit_scale=extras.get("logit_scale"), bpe_path=args.bpe_path,
-                       raw_uint8=args.raw_uint8)
+                       raw_uint8=args.raw_uint8, cam_group=cam_group)
 
 
 def cmd_serve(args):
     """Bind the model, rig precompute and classifier on the device and
-    answer requests over a unix socket until interrupted."""
-    handler, required, expect, exclusive = build_serve_handler(args)
-    srv = TensorServer(handler, args.socket, required=required, exclusive=exclusive)
-    srv.start()
-    print(f"serving on {args.socket} ({expect}); ctrl-c to stop", flush=True)
+    answer requests over a unix socket until interrupted. With --cam-shards
+    S the S processes of the group (--dist-* or torchrun's variables) each
+    build the sharded handler; rank 0 serves the socket, the others compute
+    the requests it broadcasts."""
+    opened = dist_init(args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
+                       device=args.device)
     try:
-        while True:
-            time.sleep(3600)
-    except KeyboardInterrupt:
-        srv.stop()
+        handler, required, expect, exclusive = build_serve_handler(args)
+        if not handler.leader:
+            handler.follow()
+            return
+        srv = TensorServer(handler, args.socket, required=required, exclusive=exclusive)
+        srv.start()
+        print(f"serving on {args.socket} ({expect}); ctrl-c to stop", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            srv.stop()
+            handler.close()
+    finally:
+        if opened:
+            dist_shutdown()
 
 
 def resolve_weights_dir(weights_dir: str, preset: str):
@@ -453,12 +495,9 @@ def cmd_cache_depth(args):
 
 
 def refuse_unported_training(args):
-    """The `train` options that are not ported, each refused before
-    anything is built: --cam-shards > 1 naming its ROADMAP item, a --remat
-    that names no policy the port has (ValueError, `rematutil.check_policy`)."""
-    if args.cam_shards > 1:
-        raise NotImplementedError("camera-sharded training (--cam-shards > 1) is not ported "
-                                  "yet: ROADMAP Queue 1 item 16")
+    """The `train` options that are not ported, refused before anything is
+    built: a --remat that names no policy the port has (ValueError,
+    `rematutil.check_policy`)."""
     check_policy(parse_policy(args.remat))
 
 
@@ -475,12 +514,19 @@ def cmd_train(args):
     --dist-* (or torchrun's variables) each process
     trains on its shard of the data on its own card, in lockstep
     (`train/distributed.py`); rank 0 prints the param table and writes the
-    checkpoints and the log. Scalars go to <work-dir>/train.log.jsonl every
-    50 iterations. Returns {"start_epoch", "step"}."""
+    checkpoints and the log. With --cam-shards S the world is (world / S)
+    batch rows x S cam ranks: each row loads its shard of the data, each
+    rank runs its cameras of the row's batch (`model/camshard.py`), the
+    batch's metas pinned to the whole rig's keyego anchor. Scalars go to
+    <work-dir>/train.log.jsonl every 50 iterations. Returns
+    {"start_epoch", "step"}."""
     refuse_unported_training(args)
     opened = dist_init(args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
                        device=args.device)
     try:
+        world = dist.get_world_size() if data_parallel() else 1
+        if world % args.cam_shards:
+            raise ValueError(f"{world} devices not divisible by --cam-shards {args.cam_shards}")
         return _train(args)
     finally:
         if opened:
@@ -489,6 +535,11 @@ def cmd_train(args):
 
 def _train(args):
     rank, count = process_shard()
+    cam_group = cam_groups(count // args.cam_shards, args.cam_shards) \
+        if args.cam_shards > 1 else None
+    # the data's shards: one per batch row, every cam rank of a row loads it
+    shard, shards = (rank, count) if cam_group is None else (cam_group.batch_index,
+                                                             cam_group.batch_shards)
     cfg = build_cfg(args)
     model, _tower, ovw, membership, _extras = build_model_and_params(
         cfg, args.load_from, args.depth_load_from, args.bpe_path, device=args.device,
@@ -501,7 +552,7 @@ def _train(args):
         num_temporal=cfg.num_temporal, is_train=True, data_root=args.data_root,
         depth_cache_dir=args.depth_cache)
     loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True, num_workers=args.workers,
-                        shard=(rank, count) if count > 1 else None)
+                        shard=(shard, shards) if shards > 1 else None)
     tx = AdamW(lr=args.lr, accum_steps=args.accum_steps)
     state = create_train_state(model, tx)
     start_epoch = 0
@@ -516,7 +567,16 @@ def _train(args):
                   f"~{start_epoch})")
         else:
             print(f"auto-resumed from {latest} (epoch {start_epoch})")
-    step = make_train_step(model, tx, cfg, membership)
+    if cam_group is None:
+        step = make_train_step(model, tx, cfg, membership)
+    else:
+        base_step = make_train_step(model.set_cam_group(cam_group), tx, cfg, membership,
+                                    cam_group=cam_group)
+
+        def step(state, batch):
+            batch = dict(batch, metas=prepare_camshard_metas(cfg, batch["metas"],
+                                                             args.cam_shards))
+            return base_step(state, batch)
     log = MetricWriter(args.work_dir, tensorboard=True) if rank == 0 else contextlib.nullcontext()
     with log as writer:
         state = train_epochs(state, step, loader, ovw, max_epochs=args.epochs,
@@ -849,7 +909,9 @@ OPTIONS = (
                             "--eval: the loader ships post-aug uint8 frames; either way they "
                             "are normalized on the device"),
      ("serve", "test", "cache-depth", "benchmark", "export")),
-    (("--cam-shards",), dict(type=int, default=1, help="not ported: must be 1"),
+    (("--cam-shards",), dict(type=int, default=1, help="shard the cameras over this many "
+                             "processes (serve: the whole world; train: (world / this) batch "
+                             "rows of this many)"),
      ("serve", "train")),
     (("--load-from",), dict(default=None, help="reference SAN/VEON semantic .pth"),
      ("serve", "test", "train", "parity", "vis")),
@@ -881,13 +943,13 @@ OPTIONS = (
                         "everything_saveable, dots_saveable, dots_with_no_batch_dims_saveable "
                         "(nn/rematutil.py)"), ("train",)),
     (("--dist-coordinator",), dict(default=None, help="host:port of process 0 (multi-process "
-                                   "training; also read from MASTER_ADDR/MASTER_PORT)"),
-     ("train",)),
+                                   "training or camera-sharded serving; also read from "
+                                   "MASTER_ADDR/MASTER_PORT)"), ("serve", "train")),
     (("--dist-num-processes",), dict(type=int, default=None, help="world size, one process per "
                                      "card (also read from WORLD_SIZE, or from NNODES where "
-                                     "each host has one card)"), ("train",)),
+                                     "each host has one card)"), ("serve", "train")),
     (("--dist-process-id",), dict(type=int, default=None, help="this process's rank (also read "
-                                  "from RANK or NODE_RANK)"), ("train",)),
+                                  "from RANK or NODE_RANK)"), ("serve", "train")),
     (("--pipeline",), dict(type=int, default=1, help="predictions in flight in the eval loop "
                            "(1: strictly serial; 2: frame N+1 uploaded and enqueued before "
                            "frame N's grid is read back)"), ("test", "benchmark")),

@@ -43,10 +43,18 @@ Socket serving with free-text retrieval (counterpart of `veon_tpu serve`,
                                          text_tokens=...)  # pred, retrieval
 
 With a cfg of num_temporal > 1 the handler holds a `TemporalSession`.
+
+Camera-sharded serving (counterpart of `veon_tpu serve --cam-shards S`):
+every rank of a cam group (`collectives.cam_groups`) calls
+`serve_entry(..., cam_group=cg)`; the group's first rank mounts the
+handler on its server and each request it takes is broadcast to the
+others, which run `handler.follow()` until the first rank's
+`handler.close()`.
 """
 
 from __future__ import annotations
 
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Mapping, Optional
 
@@ -55,17 +63,20 @@ import torch
 from torch import nn
 
 from . import resolve_device
+from .collectives import CamGroup
 from .cli.shapes import example_batch, example_batch_full, example_depth_imgs, example_drive
 from .ckpt.from_jax import load_from_jax, load_text_tower
 from .configs import presets
 from .configs.base import VeonConfig
 from .data.transforms import normalize_in_graph
 from .geometry.frustum import sensor2keyego_chain
+from .model.camshard import prepare_camshard_metas
 from .model.veon import VeonModel, fused_classes, retrieval_map
 from .nn import text as text_mod
 from .nn.layers import init_random_
 from .nn.rematutil import RematSpec
 from .nn.vit import CLIPTextEncoder
+from .serve.camshard import make_camera_sharded_forward, share_request
 from .serve.streaming import TemporalSession
 from .train.step import AdamW, TrainState, create_train_state, make_train_step
 
@@ -76,14 +87,17 @@ class ServingForward(nn.Module):
     (imgs, depth_imgs, metas, ov_weight) -> the (B, X, Y, Z) int32 class
     grid. The weights and the vocabulary's merge are the module's; the rig
     metas (with "lift_sorted") and the open-vocabulary matrix are inputs,
-    so `utils/export.py` freezes the one and keeps the others arguments."""
+    so `utils/export.py` freezes the one and keeps the others arguments.
+    `full_forward` is the forward whose outputs it classifies: the model's
+    own, or a camera-sharded one (`serve/camshard.py`)."""
 
-    def __init__(self, model: VeonModel, membership):
+    def __init__(self, model: VeonModel, membership, full_forward=None):
         super().__init__()
         self.model, self.membership = model, membership
+        self.full_forward = full_forward or model.full_forward
 
     def forward(self, imgs, depth_imgs, metas, ov_weight):
-        return fused_classes(self.model.full_forward(imgs, depth_imgs, metas, ov_weight),
+        return fused_classes(self.full_forward(imgs, depth_imgs, metas, ov_weight),
                              self.membership)
 
 
@@ -92,18 +106,24 @@ class FrameServer:
     open-vocabulary weights; calling it serves one frame through its
     `ServingForward` (`forward`).
     `normalize=(img_method, depth_method)` makes `infer` take raw uint8 HWC
-    frames and normalize them on the device (`data/transforms.py`)."""
+    frames and normalize them on the device (`data/transforms.py`).
+    `cam_group` shards the cameras over its ranks (`serve/camshard.py`,
+    the model in place): `metas` then come from
+    `prepare_camshard_metas(presort=True)` and every rank of the group
+    calls with the whole frame."""
 
-    def __init__(self, model: VeonModel, metas, ov_weight, membership, normalize=None):
+    def __init__(self, model: VeonModel, metas, ov_weight, membership, normalize=None,
+                 cam_group: Optional[CamGroup] = None):
         self.model, self.metas = model, metas
         self.ov_weight, self.membership = ov_weight, membership
         self.normalize = normalize
-        self.forward = ServingForward(model, membership)
+        self.forward = ServingForward(model, membership, None if cam_group is None
+                                      else make_camera_sharded_forward(model, cam_group))
 
     @torch.no_grad()
     def outputs(self, imgs, depth_imgs):
         """The model's raw fp32 outputs (bin_occ, feat_occ, sem_occ_raw, ...)."""
-        return self.model.full_forward(imgs, depth_imgs, self.metas, self.ov_weight)
+        return self.forward.full_forward(imgs, depth_imgs, self.metas, self.ov_weight)
 
     @torch.no_grad()
     def __call__(self, imgs, depth_imgs):
@@ -295,6 +315,10 @@ def serving_model(cfg: VeonConfig, device="cuda", seed: int = 0,
     return model, tower, ovw, membership
 
 
+# the request's tensors whose shapes the warm-up frame fixes
+_FRAME_KEYS = ("imgs", "depth_imgs", "lidarego2global")
+
+
 class ServeHandler:
     """The request handler of the socket server (counterpart of the one
     `veon_tpu/cli/main.py` `_build_serve_handler` builds); called with a
@@ -313,13 +337,27 @@ class ServeHandler:
     PyTorch keeps cuDNN's execution-plan cache and the cuBLAS handles per
     thread, so a request computed on a new thread builds them again (on an
     H100 a connection's first request took 0.7-1.8 s against ~0.15 s
-    steady). Grad mode is per thread too: the worker runs under no_grad."""
+    steady). Grad mode is per thread too: the worker runs under no_grad.
+
+    With a `cam_group` (the server or session sharded over it) every rank
+    of the group holds a handler: the group's first rank (`leader`) is
+    called by its server, checks each request and broadcasts it
+    (`serve/camshard.py` `share_request`) before it computes; every other
+    rank computes the same requests in `follow()`, which returns after the
+    leader's `close()`. A request whose frames differ in shape from the
+    warm-up frame's (`warm`) is refused before it is broadcast, and a
+    follower whose compute raises logs it and takes the next request: the
+    leader answers its client with the error."""
 
     def __init__(self, cfg: VeonConfig, tower: CLIPTextEncoder,
                  server: Optional[FrameServer] = None,
-                 session: Optional[TemporalSession] = None, raw_uint8: bool = False):
+                 session: Optional[TemporalSession] = None, raw_uint8: bool = False,
+                 cam_group: Optional[CamGroup] = None):
         self.cfg, self.text_tower = cfg, tower
         self.server, self.session, self.raw_uint8 = server, session, raw_uint8
+        self.cam_group = cam_group
+        self.leader = cam_group is None or cam_group.index == 0
+        self.shapes: Dict[str, tuple] = {}
         self.device = tower.positional_embedding.device
         self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="veon-serve")
 
@@ -351,18 +389,60 @@ class ServeHandler:
         return None
 
     def __call__(self, **req) -> Dict[str, np.ndarray]:
+        if not self.leader:
+            raise RuntimeError("only the cam group's first rank takes requests; the others "
+                               "follow()")
+        return self._worker.submit(self._lead, req).result()
+
+    def warm(self, **req) -> Dict[str, np.ndarray]:
+        """Compute the warm-up frame, which every rank of a cam group holds,
+        without broadcasting it; its frames' shapes are the ones every
+        request must have."""
+        self.shapes = {k: tuple(req[k].shape) for k in _FRAME_KEYS if k in req}
         return self._worker.submit(self._compute, req).result()
 
-    @torch.no_grad()
-    def _compute(self, req) -> Dict[str, np.ndarray]:
-        if self.session is not None:
-            if "reset" in req:
-                self.session.reset()
-                return {"ok": np.int32(1)}
+    def follow(self) -> None:
+        """A cam rank after the first: compute each request the first rank
+        broadcasts, until its `close()`."""
+        while True:
+            req = self._worker.submit(share_request, None, self.cam_group, self.device).result()
+            if req is None:
+                return
+            try:
+                self._worker.submit(self._compute, req).result()
+            except Exception as e:  # the first rank reports it; keep following
+                print(f"cam rank {self.cam_group.index}: request failed: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
+
+    def close(self) -> None:
+        """The first rank of a cam group: end the other ranks' `follow()`."""
+        if self.cam_group is not None and self.leader:
+            self._worker.submit(share_request, None, self.cam_group, self.device).result()
+
+    def _lead(self, req):
+        self._check(req)
+        if self.cam_group is not None:
+            req = share_request(req, self.cam_group, self.device)
+        return self._compute(req)
+
+    def _check(self, req) -> None:
+        """Refuse a malformed request before any rank computes it."""
+        if self.session is not None and "reset" not in req:
             missing = [k for k in ("imgs", "depth_imgs", "lidarego2global") if k not in req]
             if missing:
                 raise KeyError(f"missing tensors: {missing} (or send a `reset` frame)")
-        self._check_img_dtype(req)
+        if self.session is None or "reset" not in req:
+            self._check_img_dtype(req)
+            for k, want in self.shapes.items():
+                if k in req and tuple(req[k].shape) != want:
+                    raise ValueError(f"{k} shape {tuple(req[k].shape)} is not this server's "
+                                     f"{want}")
+
+    @torch.no_grad()
+    def _compute(self, req) -> Dict[str, np.ndarray]:
+        if self.session is not None and "reset" in req:
+            self.session.reset()
+            return {"ok": np.int32(1)}
         te = self._embed(req)
         imgs, depth_imgs = self._tensor(req["imgs"]), self._tensor(req["depth_imgs"])
         if self.session is not None:
@@ -380,7 +460,8 @@ class ServeHandler:
 def serve_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
                 variables: Optional[Mapping] = None, text_tower: Optional[Mapping] = None,
                 bg_embed=None, logit_scale=None, bpe_path: Optional[str] = None,
-                raw_uint8: bool = False, model: Optional[VeonModel] = None):
+                raw_uint8: bool = False, model: Optional[VeonModel] = None,
+                cam_group: Optional[CamGroup] = None):
     """(handler, required request keys, expectation string, exclusive) of
     the socket server for `cfg` (default: veon_b in bf16), warmed on the
     example frames (mid-gray uint8 ones with raw_uint8) with an empty
@@ -389,7 +470,9 @@ def serve_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
     The model, text tower and classifier as `serving_model` builds them
     from `model` or `variables`, `text_tower`, `bg_embed`, `logit_scale`
     and `bpe_path`. cfg.num_temporal > 1 serves a streaming session, one
-    connection at a time (exclusive)."""
+    connection at a time (exclusive). `cam_group` shards the cameras over
+    its ranks, each of which calls this (`ServeHandler` says who serves):
+    the rig's presort is then each shard's (`prepare_camshard_metas`)."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = presets.veon_b(compute_dtype="bfloat16")
@@ -401,25 +484,34 @@ def serve_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
     if raw_uint8:
         imgs = torch.full(imgs.shape, 127, dtype=torch.uint8, device=dev)
         depth_imgs = torch.full(depth_imgs.shape, 127, dtype=torch.uint8, device=dev)
+
+    def presorted(rig):
+        if cam_group is None:
+            return _with_presort(model, rig)
+        return prepare_camshard_metas(cfg, rig, cam_group.size, presort=True)
+
     if cfg.num_temporal > 1:
         rig = {k: metas[k][:, 0:1] for k in ("sensor2egos", "ego2globals", "intrins",
                                              "post_rots", "post_trans")}
         rig["bda"] = metas["bda"]
-        session = TemporalSession(model, ovw, membership, rig_metas=_with_presort(model, rig),
-                                  normalize=norm)
-        handler = ServeHandler(cfg, tower, session=session, raw_uint8=raw_uint8)
+        session = TemporalSession(model, ovw, membership, rig_metas=presorted(rig),
+                                  normalize=norm, cam_group=cam_group)
+        handler = ServeHandler(cfg, tower, session=session, raw_uint8=raw_uint8,
+                               cam_group=cam_group)
         imgs, depth_imgs = imgs[:, 0:1], depth_imgs[:, 0:1]
-        handler(imgs=imgs, depth_imgs=depth_imgs, lidarego2global=metas["lidarego2global"],
-                text_tokens=no_text)
+        handler.warm(imgs=imgs, depth_imgs=depth_imgs, lidarego2global=metas["lidarego2global"],
+                     text_tokens=no_text)
         session.reset()
         required = ()  # reset frames carry no frames; the handler checks the keys
         expect = (f"expected per-frame imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "
                   f"{tuple(depth_imgs.shape)}, lidarego2global (1, 4, 4); optional "
                   f"text_embed/text_tokens for retrieval")
     else:
-        server = FrameServer(model, _with_presort(model, metas), ovw, membership, normalize=norm)
-        handler = ServeHandler(cfg, tower, server=server, raw_uint8=raw_uint8)
-        handler(imgs=imgs, depth_imgs=depth_imgs, text_tokens=no_text)
+        server = FrameServer(model, presorted(metas), ovw, membership, normalize=norm,
+                             cam_group=cam_group)
+        handler = ServeHandler(cfg, tower, server=server, raw_uint8=raw_uint8,
+                               cam_group=cam_group)
+        handler.warm(imgs=imgs, depth_imgs=depth_imgs, text_tokens=no_text)
         required = ("imgs", "depth_imgs")
         expect = (f"expected imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "
                   f"{tuple(depth_imgs.shape)}; optional text_embed/text_tokens for retrieval")

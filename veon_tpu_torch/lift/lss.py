@@ -4,14 +4,26 @@ frustum's planes), `two_hot_depth`, `one_hot_depth` and
 `depth_bins_one_hot_gt` (the stage-1 losses' targets),
 `banded_two_hot(_with_floor)` and
 `LSSLift` with its three lifts:
-  * `lift_presorted`: fixed rig, rank sort precomputed once (serving);
+  * `lift_presorted`: fixed rig, rank sort precomputed once (serving), in
+    the coarse-major layout whose pool fuses the max-pool ("rk_pooled",
+    kernel #1) or in the flat one ("rk_sorted", kernel #2, then the
+    max-pool);
   * `lift_from_metric`: K-banded two-hot straight from metric depth plus
     the far-depth spray, ranks from per-pixel rays every call (training);
   * `__call__`: the reference formulation over the whole frustum.
 Every pool routes by its tensors' device: the card's kernels (#1-#3) on
 CUDA tensors, their plain versions on CPU tensors. The plain route is the
 counterpart of JAX's `LSSLift(impl="scan")`, which only JAX's tests use.
-Channel-last throughout."""
+Channel-last throughout.
+
+Camera sharding (`cam_group`, JAX's `psum_axis`): each rank lifts its own
+cameras and `_ds_pool` sums the ranks' full-resolution grids
+(`collectives.cam_sum`) before the max-pool, since the max of a sum is
+not the sum of the maxes where several cameras put mass in one coarse
+cell. The fused-pool layout max-pools inside the kernel, before any sum
+could run, so it is refused under a cam group. The sum runs in the grid's
+dtype, as JAX's psum does: in bf16 each rank's partial grid is rounded
+before the sum (`PERF.md` holds fp32 partial sums against it)."""
 
 from __future__ import annotations
 
@@ -22,10 +34,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..collectives import CamGroup, cam_sum
 from ..configs.base import GridConfig
 from ..geometry.frustum import create_frustum, frustum_to_ego, pixel_ray_geometry, voxel_ranks
 from ..ops.bev_pool import (PREFIX_ROUND, bev_pool, bev_pool_banded, bev_pool_banded2,
-                            bev_pool_presorted_pooled, pooled_rank_remap)
+                            bev_pool_presorted, bev_pool_presorted_pooled, pooled_rank_remap)
 
 # The two-hot softmax clamps its logits at MIN_GAP (straight-through).
 MIN_GAP = -16.0
@@ -148,6 +161,8 @@ class LSSLift:
     spray_eps: float = 1e-6
     # optional capped prefix of the spray stream (None = lossless)
     spray_cap: Optional[float] = None
+    # camera sharding: the ranks whose lifted grids `_ds_pool` sums
+    cam_group: Optional[CamGroup] = None
 
     @classmethod
     def from_config(cls, cfg, **overrides):
@@ -169,31 +184,48 @@ class LSSLift:
         coor = frustum_to_ego(frustum, sensor2ego, cam2img, post_rot, post_tran, bda)
         return voxel_ranks(coor, self.grid)
 
-    def precompute_sorted(self, sensor2ego, cam2img, post_rot, post_tran, bda
-                          ) -> Dict[str, torch.Tensor]:
-        """Fixed-rig accelerate precompute, once per rig: coarse-major voxel
-        ranks of every frustum point, their stable sort, and the sorted
-        prefix holding every in-grid point (`PREFIX_ROUND`).
-        Returns {"order", "rk_pooled", "ranks"} on the inputs' device."""
+    def precompute_sorted(self, sensor2ego, cam2img, post_rot, post_tran, bda,
+                          fuse_ds_pool: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """Fixed-rig accelerate precompute, once per rig: voxel ranks of
+        every frustum point, their stable sort, and the sorted prefix
+        holding every in-grid point (`PREFIX_ROUND`). fuse_ds_pool (default:
+        whenever valid, i.e. without a cam group and with a max-pool) picks
+        the coarse-major layout that kernel #1 pools and max-pools in one
+        pass; else the flat one. The dict's key names the layout, as JAX's:
+        {"order", "rk_pooled" or "rk_sorted", "ranks"} on the inputs'
+        device."""
         num_cells = self._num_cells(sensor2ego.shape[0])
-        if int(np.prod(self.ds_feat)) == 1:
-            raise NotImplementedError("only the fused-pool layout (ds_feat != 1) is ported")
-        ranks = pooled_rank_remap(self.precompute_ranks(sensor2ego, cam2img, post_rot,
-                                                        post_tran, bda),
-                                  self.grid.size, self.ds_feat, num_cells)
+        if fuse_ds_pool is None:
+            fuse_ds_pool = self.cam_group is None and int(np.prod(self.ds_feat)) > 1
+        if fuse_ds_pool and self.cam_group is not None:
+            raise ValueError(
+                "fuse_ds_pool under camera sharding: the cam-axis psum needs "
+                "the full-resolution grid before the max-pool")
+        ranks = self.precompute_ranks(sensor2ego, cam2img, post_rot, post_tran, bda)
+        if fuse_ds_pool:
+            ranks = pooled_rank_remap(ranks, self.grid.size, self.ds_feat, num_cells)
         rk = ranks.permute(0, 1, 3, 4, 2).reshape(-1)  # pixel-major points
         order = torch.argsort(rk, stable=True)  # jnp.argsort is stable
         n_valid = int((rk < num_cells).sum())
         p_cap = min(-(-n_valid // PREFIX_ROUND) * PREFIX_ROUND, rk.shape[0])
         order = order[:p_cap]
-        return {"order": order.to(torch.int32), "rk_pooled": rk[order].to(torch.int32),
+        return {"order": order.to(torch.int32),
+                "rk_pooled" if fuse_ds_pool else "rk_sorted": rk[order].to(torch.int32),
                 "ranks": ranks}
 
     def lift_presorted(self, feat, depth, precomp):
         """feat (B, N, h, w, C), depth (B, N, D, h, w) two-hot weights ->
-        (B, nz/dz, ny/dy, nx/dx, C)."""
-        return bev_pool_presorted_pooled(depth, feat, precomp["order"], precomp["rk_pooled"],
-                                         precomp["ranks"], self.grid.size, tuple(self.ds_feat))
+        (B, nz/dz, ny/dy, nx/dx, C): a "rk_pooled" precompute through kernel
+        #1 (the max-pool fused), a "rk_sorted" one through kernel #2 and
+        `_ds_pool`."""
+        if "rk_pooled" in precomp:
+            assert self.cam_group is None, "pooled presorted lift cannot feed a cam-axis psum"
+            return bev_pool_presorted_pooled(depth, feat, precomp["order"], precomp["rk_pooled"],
+                                             precomp["ranks"], self.grid.size,
+                                             tuple(self.ds_feat))
+        return self._ds_pool(bev_pool_presorted(depth, feat, precomp["order"],
+                                                precomp["rk_sorted"], precomp["ranks"],
+                                                self.grid.size))
 
     def __call__(self, feat, depth, sensor2ego, cam2img, post_rot, post_tran, bda,
                  ranks=None):
@@ -204,8 +236,11 @@ class LSSLift:
         return self._ds_pool(bev_pool(depth, feat, ranks, self.grid.size, self.valid_cap))
 
     def _ds_pool(self, vox):
-        """The [dz, dy, dx] output max-pool; `amax` splits the gradient of a
-        tie evenly, as jnp.max does (the sparse grid has many zero ties)."""
+        """Under a cam group the sum of the ranks' full-resolution grids,
+        then the [dz, dy, dx] output max-pool; `amax` splits the gradient of
+        a tie evenly, as jnp.max does (the sparse grid has many zero ties)."""
+        if self.cam_group is not None:
+            vox = cam_sum(vox, self.cam_group)
         dz, dh, dw = self.ds_feat
         if (dz, dh, dw) == (1, 1, 1):
             return vox

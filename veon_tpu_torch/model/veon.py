@@ -15,6 +15,15 @@ The lift: a fixed rig's presorted streams when `metas` carry "lift_sorted"
 default, and every frame of the batched F>1 forward) or the reference
 full-frustum lift.
 
+Camera sharding (`set_cam_group`, JAX's `cam_axis_name`): the model runs on
+one rank's block of the cameras, and its lift sums the ranks' grids before
+the max-pool (`lift/lss.py`); everything before the lift is per camera and
+everything after it sees the same grid on every rank. The keyego anchor
+is the rig's cam 0, which a shard whose first camera is another cannot
+compute, so `metas["sensor2keyegos"]`, pinned from the whole rig
+(`model/camshard.py` `prepare_camshard_metas`), is taken where present
+(`resolve_sensor2keyegos`).
+
 Temporal (F>1, frame 0 current, frames 1.. previous): each previous frame
 is lifted with its own metas and no gradient, warped into the current
 ego frame (`align_to_prev`) and fused before the 3D ResBlocks. The
@@ -33,12 +42,14 @@ frozen rec head's blocks.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from .. import resolve_device, torch_dtype
+from ..collectives import CamGroup
 from ..configs.base import VeonConfig
 from ..geometry.frustum import _matvec, compose_se3, se3_inverse, sensor2keyego_chain
 from ..lift.lss import LSSLift, min_pool_depth, two_hot_depth
@@ -53,7 +64,21 @@ from ..nn.zoedepth import ZoeDepthNK
 from ..ops.grid_sample import grid_sample_3d
 from ..ops.resize import resize_bilinear, resize_trilinear
 
+# the per-camera (B, N, ...) output leaves, gathered over the cam group by
+# camera-sharded serving and before the sharded step's loss; the voxel
+# leaves are the same on every rank of a cam group
+PER_CAMERA_OUTPUTS = ("sem_seg_ds", "sem_embed_ds", "clip_feat")
 VOXEL_OUTPUTS = ("bin_occ", "feat_occ", "sem_occ_raw")
+
+
+def resolve_sensor2keyegos(metas, B, F, N):
+    """The per-frame keyego chain (B, F, N, 4, 4): metas["sensor2keyegos"]
+    where pinned (a camera shard's), else computed from the batch's own
+    sensor2egos / ego2globals, each frame anchored at its own cam-0 ego."""
+    if "sensor2keyegos" in metas:
+        return metas["sensor2keyegos"]
+    return sensor2keyego_chain(metas["sensor2egos"].reshape(B, F * N, 4, 4),
+                               metas["ego2globals"].reshape(B, F * N, 4, 4), F, N)
 
 
 class VeonModel(nn.Module):
@@ -95,6 +120,16 @@ class VeonModel(nn.Module):
                                        c.num_temporal, dtype=dt, remat=remat)
         self.lift = LSSLift.from_config(c)
 
+    @property
+    def cam_group(self) -> Optional[CamGroup]:
+        return self.lift.cam_group
+
+    def set_cam_group(self, cam_group: Optional[CamGroup]) -> "VeonModel":
+        """Shard the cameras over `cam_group` (None: every camera local), in
+        place; the weights stay as they are. Returns the model."""
+        self.lift = dataclasses.replace(self.lift, cam_group=cam_group)
+        return self
+
     def estimate_depth(self, depth_imgs):
         """(B, F, N, Hd, Wd, 3) DA-V2- or midas-normalized (the depth
         branch's) -> (B, F, N, H/2, W/2) metric, resized bilinear
@@ -118,7 +153,8 @@ class VeonModel(nn.Module):
         """imgs (B, F, N, H, W, 3); depth (B, F, N, H/2, W/2) metric; metas
         with the rig (sensor2egos, ego2globals, intrins, post_rots,
         post_trans, bda), optionally "lift_sorted" from
-        `LSSLift.precompute_sorted` (used at F=1), and for F>1
+        `LSSLift.precompute_sorted` (used at F=1) and a pinned
+        "sensor2keyegos" (B, F, N, 4, 4), and for F>1
         lidarego2global (B, 4, 4) and prev_lidarego2global (B, F-1, 4, 4);
         ov_weight (P+1, C_embed). Returns sem_seg_ds / sem_embed_ds
         (B,N,h,w,C), clip_feat, bin_occ (B,Z,Y,X,2), feat_occ, sem_occ_raw
@@ -128,8 +164,7 @@ class VeonModel(nn.Module):
         flat = imgs.reshape((-1,) + imgs.shape[3:])
         with _frozen(train):
             feats = self._clip_trunk(flat)  # every frame's cameras
-        s2k = sensor2keyego_chain(metas["sensor2egos"].reshape(B, F * N, 4, 4),
-                                  metas["ego2globals"].reshape(B, F * N, 4, 4), F, N)
+        s2k = resolve_sensor2keyegos(metas, B, F, N)
 
         def frame_flat(x, f):
             return x.reshape((B, F, N) + x.shape[1:])[:, f].reshape((B * N,) + x.shape[1:])
@@ -250,8 +285,7 @@ class VeonModel(nn.Module):
     @staticmethod
     def _lift_args1(metas, B, N):
         """The lift's geometry arguments of a single-frame batch."""
-        s2k = sensor2keyego_chain(metas["sensor2egos"].reshape(B, N, 4, 4),
-                                  metas["ego2globals"].reshape(B, N, 4, 4), 1, N)[:, 0]
+        s2k = resolve_sensor2keyegos(metas, B, 1, N)[:, 0]
         return (s2k, metas["intrins"][:, 0], metas["post_rots"][:, 0],
                 metas["post_trans"][:, 0], metas["bda"])
 

@@ -24,8 +24,9 @@ Each launch, from a wrapper or from a loaded program, counts in
 `<wrapper>.launches`.
 
 The differentiable ops (`bev_pool`, `bev_pool_banded`, `bev_pool_banded2`,
-`bev_pool_presorted_pooled`) are `torch.autograd.Function`s whose backwards
-are the JAX package's gather adjoints, in torch ops.
+`bev_pool_presorted`, `bev_pool_presorted_pooled`) are
+`torch.autograd.Function`s whose backwards are the JAX package's gather
+adjoints, in torch ops.
 """
 
 from __future__ import annotations
@@ -428,3 +429,39 @@ def bev_pool_presorted_pooled(depth, feat, order, rk_pooled, ranks, grid_size, d
     -> (B, nz/dz, ny/dy, nx/dx, C)."""
     return _PresortedPooled.apply(depth, feat, order, rk_pooled, ranks, tuple(grid_size),
                                   tuple(ds))
+
+
+class _Presorted(torch.autograd.Function):
+    """bev_pool_pallas_presorted: the rows of a fixed rig's presorted
+    stream gathered and weighted by `presorted_vals`, summed per fine cell
+    by kernel #2; the backward is the full-frustum gather adjoint (the
+    prefix holds every in-grid point, so the forward is lossless)."""
+
+    @staticmethod
+    def forward(ctx, depth, feat, order, rk_sorted, ranks, grid_size):
+        B, C = depth.shape[0], feat.shape[-1]
+        nx, ny, nz = grid_size
+        num_cells = _num_cells(feat, grid_size)
+        vals = presorted_vals(depth, feat, order).contiguous()
+        out = bev_pool_sorted(vals, rk_sorted, num_cells)
+        ctx.save_for_backward(depth, feat, ranks)
+        ctx.num_cells = num_cells
+        return out.reshape(B, nz, ny, nx, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        depth, feat, ranks = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dw, df = _gather_adjoint(g, depth.permute(0, 1, 3, 4, 2), feat,
+                                 ranks.permute(0, 1, 3, 4, 2), ctx.num_cells, need[0], need[1])
+        return (None if dw is None else dw.permute(0, 1, 4, 2, 3)), df, None, None, None, None
+
+
+def bev_pool_presorted(depth, feat, order, rk_sorted, ranks, grid_size):
+    """Accelerate-mode lift without the fused max-pool: depth
+    (B, N, D, h, w) weights, feat (B, N, h, w, C), `order` / `rk_sorted`
+    (int32, P) / `ranks` (B, N, D, h, w) in the flat layout from
+    `LSSLift.precompute_sorted(fuse_ds_pool=False)` -> the fine grid
+    (B, nz, ny, nx, C). Rows of rank num_cells (a camera shard's padding)
+    land past the last cell and are dropped."""
+    return _Presorted.apply(depth, feat, order, rk_sorted, ranks, tuple(grid_size))

@@ -1,5 +1,5 @@
 """Stateful streaming temporal serving (counterpart of
-`veon_tpu/serve/streaming.py` `TemporalSession`, without camera sharding).
+`veon_tpu/serve/streaming.py` `TemporalSession`).
 
 The batched temporal forward lifts every previous frame again on each
 call. A session does not: each call returns its frame's pre-fusion lifted
@@ -8,6 +8,13 @@ and replays them as the previous frames of the next call. A steady call
 costs one frame's towers and lift plus (F-1) x (ego-motion warp +
 temporal fusion), and its outputs equal the batched forward's on the same
 frames.
+
+Camera-sharded (`cam_group`): each rank runs its block of the cameras,
+the lift sums the ranks' grids (`model/camshard.py`), and the cache,
+which holds voxels after that sum, is the same on every rank. The rig
+metas carry the stacked per-shard presort and the whole rig's keyego
+anchor (`prepare_camshard_metas(presort=True)`); a frame's metas without
+the anchor get it pinned before they are cut.
 """
 
 from __future__ import annotations
@@ -18,9 +25,11 @@ import torch
 from torch import nn
 
 from .. import torch_dtype
+from ..collectives import CamGroup
 from ..data.transforms import normalize_in_graph
 from ..model.veon import VeonModel, fusion_rule, retrieval_map
 from ..nn import text as text_mod
+from ..model.camshard import gather_outputs, local_inputs, prepare_camshard_metas
 
 
 class StreamingStep(nn.Module):
@@ -70,16 +79,20 @@ class TemporalSession:
     `estimate_depth=False` takes metric depth in place of depth-tower
     images; `normalize=(img_method, depth_method)` takes raw uint8 HWC
     frames and normalizes them on the card (`data/transforms.py`).
+    `cam_group` shards the cameras over its ranks (the model in place,
+    `VeonModel.set_cam_group`); every rank of the group calls `infer` with
+    the whole frame.
     """
 
     def __init__(self, model: VeonModel, ov_weight: torch.Tensor, membership=None,
                  rig_metas: Optional[Dict[str, Any]] = None, estimate_depth: bool = True,
-                 normalize=None, mesh=None):
+                 normalize=None, cam_group: Optional[CamGroup] = None):
         cfg = model.cfg
         if cfg.num_temporal < 2:
             raise ValueError("TemporalSession needs cfg.num_temporal >= 2")
-        if mesh is not None:
-            raise NotImplementedError("camera-sharded streaming is not ported yet")
+        if cam_group is not None:
+            model.set_cam_group(cam_group)
+        self.cam_group = cam_group
         self.model, self.ov_weight, self.membership = model, ov_weight, membership
         self.rig_metas = dict(rig_metas or {})
         self.step = StreamingStep(model, membership, estimate_depth, normalize)
@@ -106,7 +119,17 @@ class TemporalSession:
         m.update(metas)
         te = self._zero_embed if text_embed is None else torch.as_tensor(
             text_embed, dtype=torch.float32, device=self._zero_embed.device)
+        cg = self.cam_group
+        if cg is not None:
+            if "sensor2keyegos" not in m:
+                keep = m.pop("lift_sorted", None)
+                m = prepare_camshard_metas(self.model.cfg, m, cg.size)
+                if keep is not None:
+                    m["lift_sorted"] = keep
+            imgs, depth_imgs, m = local_inputs(imgs, depth_imgs, m, cg)
         out = self.step(imgs, depth_imgs, m, self.ov_weight, self._vox, self._l2g, te)
+        if cg is not None:
+            out = gather_outputs(out, cg)
         early = out.pop("early_vox")
         l2g = m["lidarego2global"].to(torch.float32)
         self._vox = torch.cat([early[:, None].to(self._vox.dtype), self._vox[:, :-1]], 1)

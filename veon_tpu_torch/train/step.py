@@ -22,6 +22,16 @@ While a process group is open (`collectives.py`, one rank per card), the
 step is JAX's shard_map step over a ("batch",) mesh: BatchNorm syncs
 its batch stats, and the gradients (before the optimizer, so accumulation
 folds their mean) and the losses are averaged over the ranks.
+
+With a cam group (`make_train_step(cam_group=...)`, JAX's
+`make_train_step(cam_axis="cam")` over a ("batch", "cam") mesh) the step
+takes the batch row's whole batch, runs the model on this rank's cameras
+(`model/camshard.py` `local_batch`; the metas must carry the whole rig's
+`sensor2keyegos`, `prepare_camshard_metas`) and gathers the per-camera
+outputs before the loss, which couples the cameras (JAX's `_gather_cams`);
+the metas the loss reads are the batch's own, since every rank holds them
+whole. The same world mean then combines the gradients
+(`collectives.py` says why that is JAX's pmean over "cam" and "batch").
 """
 
 from __future__ import annotations
@@ -34,9 +44,11 @@ import torch
 from torch import nn
 
 from .. import collectives
+from ..collectives import CamGroup
 from ..configs.base import VeonConfig
 from ..model.veon import VeonModel
 from ..nn.layers import BatchNorm
+from ..model.camshard import gather_outputs, local_batch
 from .losses import occupancy_loss
 
 # CLIP towers, side adapter and depth tower are frozen in stage 2; the
@@ -212,36 +224,48 @@ def _no_mark(stage: str) -> None:
 
 
 def loss_fn(model: VeonModel, cfg: VeonConfig, membership: np.ndarray, batch,
-            mark: Callable[[str], None] = _no_mark) -> Dict[str, torch.Tensor]:
+            mark: Callable[[str], None] = _no_mark,
+            cam_group: Optional[CamGroup] = None) -> Dict[str, torch.Tensor]:
     """The stage-2 loss dict of one batch (train-mode forward; BatchNorm
     running stats move in place). Depth source priority: "depth", else
-    "depth_preds", else the frozen depth tower on "depth_imgs"."""
-    if "depth" in batch:
-        depth = batch["depth"]
-    elif "depth_preds" in batch:
-        depth = batch["depth_preds"]
+    "depth_preds", else the frozen depth tower on "depth_imgs". With a cam
+    group the model runs on this rank's cameras and the loss sees every
+    camera's outputs."""
+    run = batch if cam_group is None else local_batch(batch, cam_group)
+    if "depth" in run:
+        depth = run["depth"]
+    elif "depth_preds" in run:
+        depth = run["depth_preds"]
     else:
         with torch.no_grad():
-            depth = model.estimate_depth(batch["depth_imgs"])
+            depth = model.estimate_depth(run["depth_imgs"])
     mark("depth_tower")
-    outputs = model(batch["imgs"], depth, batch["metas"], batch["ov_weight"], train=True)
+    outputs = model(run["imgs"], depth, run["metas"], batch["ov_weight"], train=True)
+    if cam_group is not None:
+        outputs = gather_outputs(outputs, cam_group)
     return occupancy_loss(outputs, batch["voxel_semantics"], batch["mask_camera"],
                           batch["metas"], batch["ov_weight"], membership, cfg.grid,
                           cfg.data.input_size, batch["epoch"], cfg.loss)
 
 
 def make_train_step(model: VeonModel, tx: AdamW, cfg: VeonConfig, membership: np.ndarray,
-                    mark: Callable[[str], None] = _no_mark):
+                    mark: Callable[[str], None] = _no_mark,
+                    cam_group: Optional[CamGroup] = None):
     """step(state, batch) -> (state, losses): one stage-2 step on one
     device. batch: imgs (B,F,N,H,W,3), depth / depth_preds (B,F,N,H/2,W/2)
     or depth_imgs, metas, voxel_semantics / mask_camera (B,X,Y,Z),
     ov_weight, epoch. losses carry "loss_total". `mark(stage)` is called as
     each stage ends ("depth_tower", "forward_and_loss", "backward",
-    "optimizer_and_ema"), e.g. to record a CUDA event there."""
+    "optimizer_and_ema"), e.g. to record a CUDA event there. With
+    `cam_group` (the model sharded over the same group) the cameras are
+    sharded over it: the batch is the batch row's whole batch, its metas
+    from `model/camshard.py` `prepare_camshard_metas`."""
+    if cam_group is not None and model.cam_group is not cam_group:
+        raise ValueError("shard the model over the step's cam group (VeonModel.set_cam_group)")
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = trainable_params(model)
-        losses = loss_fn(model, cfg, membership, batch, mark)
+        losses = loss_fn(model, cfg, membership, batch, mark, cam_group)
         total = sum(losses.values())
         mark("forward_and_loss")
         # a num_temporal > 1 model on current-frame batches (the epochs
