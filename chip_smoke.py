@@ -77,8 +77,9 @@ Phases; any failed check raises, so the exit code is non-zero:
  18. the host data plane on a 16-frame shard of 900x1600 JPEGs
      (`utils/loader_bench.py` `make_frames`): the g++ library of
      `data/native.py` built, its depth projection and voxel ranks against
-     numpy, loader frames/s over 8 frames with 2 and 4 workers in thread
-     and in process mode (forked after the card's context exists);
+     numpy, loader frames/s over 5 frames (cut from 8 for the script's
+     time) with 2 and 4 workers in thread and in process mode (forked after
+     the card's context exists);
  19. the eval loop, a main path: the tiny fixture's `test` with mirror
      files card vs CPU, then through `cli/main.py` `main` at full VEON-B
      width with seeded weights, fp32: `test` over 4 frames (kernel #3 once
@@ -137,8 +138,9 @@ Phases; any failed check raises, so the exit code is non-zero:
      lss_banded=False (#2 twice);
  32. data parallel on the card (run with phase 19's shard): (a) VEON-B
      bf16 under a one-rank NCCL group against the plain step (bit-equal
-     where the plain step repeats bit for bit), then 12 warm steps of
-     each, alternating, medians with their spread; (b) two gloo ranks
+     where the plain step repeats bit for bit), then 6 warm steps of
+     each (cut from 12 for the script's time), alternating, medians with
+     their spread; (b) two gloo ranks
      sharing the card, tiny, one step, against the same two ranks on the
      CPU, run beside (c); (c) a main path: `train --preset veon_b --dist-num-processes 2
      --dist-coordinator` fp32 as two processes sharing the card over gloo
@@ -177,13 +179,16 @@ Phases; any failed check raises, so the exit code is non-zero:
      a live `TemporalSession`, the cache rolled by hand: outputs equal,
      kernel #1 once per call; the float program and the live step timed
      in turns. The three `export` calls of 38-39 run at once, each in a
-     process of this script;
+     process of this script, started beside phase 33, which times
+     nothing;
  40. `benchmark` through the CLI, a main path: live F=1 bf16, `--num-temporal
      2` bf16, `--artifact` on both programs; the JSON lines and the F=1
      artifact-to-live ratio (phases 38-39 also time each program in turns
      with its live module);
- 41. `serve_exported` of the F=1 program, a main path: 2 requests through
-     `TensorClient`, pred equal to the live grid, kernel #1 once each.
+ 41. `serve_exported` of the F=1 program, a main path, served in phase
+     43(d)'s turns: 4 requests through `TensorClient` (the frame, then
+     perturbed by i * 1e-3), pred equal to the live grid, kernel #1 once
+     each.
  42. camera sharding (`serve/camshard.py`), ranks of this script
      (`--dp-worker cs_*`) sharing the card over gloo: (a) the tiny preset
      in fp32 at S=2 and S=3: the stacked presort on the card integer-equal
@@ -210,6 +215,34 @@ Phases; any failed check raises, so the exit code is non-zero:
      beside phase 33 (which times nothing), their ranks started before it
      and awaited after it, so their times are contended and held to
      nothing; #3 is timed after (b).
+ 43. serving with no Python in the loop (`export --native`, the op library
+     `veon_ops`, the C++ runner and daemon over libtorch): (a) right after
+     phase 2 (so the kernels' timings run alone), the ops program's inputs
+     at the flagship shapes are written and two processes of this script
+     (`--dp-worker native`, 1 compile worker each) start the AOTInductor
+     compiles beside the phases that follow, whose times are then
+     contended: `export --native --preset veon_b` (F=1 bf16), then the
+     package run in Python on (d)'s requests; and the host programs' g++
+     builds, a small package of kernels #1-#3 and the tiny fp32 bundles
+     (F=1, `--split-output 2`, `--num-temporal 2`), then (b) and (c). (b)
+     and (c) time nothing; all is awaited at phase 41. The Inductor and Triton
+     caches are kept in the checkout's build/ (a cold cache on a fresh
+     checkout). (b) the small package through
+     `veon_aoti_runner`: veon_ops' CUDA #1, #2 (full frustum, K-band) and
+     #3 bit-equal to the Python ops, its counters 1 / 2 / 1; (c) each tiny
+     bundle served by the daemon against the live port module on the CPU
+     with the same weights: the class grid off near-ties, and for T=2 (3
+     drive calls, the cache rolled by the client) the float outputs within
+     2e-4; (d) a main path, while phase 38's program and live
+     server exist: `veon_serve_host` serves the VEON-B bundle to
+     `TensorClient`, 1 + 3 requests, #1 once per request by the op
+     library's counter, each grid bit-equal to the same package run in
+     Python and agreeing with the live bf16 frame off near-ties (flip <
+     0.15); the daemon's, `serve_exported`'s (phase 41) and the live
+     frame's times in turns, the daemon's device memory; (e)
+     `utils/train_bench.py` at VEON-B bf16 (forward and loss, remat full
+     and none, dots_saveable's peak; #3 once per call and step) and
+     `utils/roofline.py`'s floors against phase 6's frame.
 Phases 11-12 serve through the CLI's handler, which computes in the
 preset's dtype: fp32 since the CLI keeps it.
 The line before the last is the kernel table as JSON; the last line is
@@ -1988,7 +2021,7 @@ def data_plane_phase(root):
     (1e-6 where both fill a pixel; a point may change pixel only on a
     pixel boundary), its voxel ranks of a VEON-B frustum (6 x 88 x 32 x 88 points)
     equal to numpy's division; then `loader_bench.loader_fps` over the
-    first 8 frames of the 900x1600 JPEG shard under root with 2 and 4
+    first 5 frames of the 900x1600 JPEG shard under root with 2 and 4
     workers in thread and in process mode (forked after the card's context
     exists; at 0.9-3 frames/s the rates need no more frames, and the
     script's time does)."""
@@ -2055,12 +2088,12 @@ def data_plane_phase(root):
         f"native {native_ms:.3f} ms, numpy {numpy_ms:.3f} ms, max diff {depth_err:.3g}, "
         f"{filled} pixels, {moved} moved ({edge} points on a boundary); ranks of {ranks.size} frustum points {ranks_ms:.3f} ms, equal, "
         f"{int(ok.sum())} in the grid")
-    pkl = shard_paths(root, 8, "loader")
+    pkl = shard_paths(root, 5, "loader")
     fps = {}
     for mode in ("thread", "process"):
         for workers in (2, 4):
             fps[f"{mode}_{workers}"] = loader_fps(pkl, root, workers, mode)
-    log(f"loader frames/s on the 900x1600 shard (VEON-B eval samples, 8 frames, "
+    log(f"loader frames/s on the 900x1600 shard (VEON-B eval samples, 5 frames, "
         f"{os.cpu_count()} cores): {fps}")
     return dict(native_jpeg=native.has_jpeg(), build_s=build_s, depth_native_ms=native_ms,
                 depth_numpy_ms=numpy_ms, depth_max_diff=depth_err, depth_pixels=filled,
@@ -3324,8 +3357,9 @@ def _wait_ranks(handle):
         f.close()
     bad = [i for i, p in enumerate(procs) if p.returncode != 0]
     if bad:
-        raise AssertionError(f"dp worker {bad[0]} exited {procs[bad[0]].returncode} (failed "
-                             f"first: {failed}):\n{outs[bad[0]][-3000:]}")
+        first = failed if failed is not None else bad[0]  # the one that failed, not one killed
+        raise AssertionError(f"dp worker {first} exited {procs[first].returncode} (of failed "
+                             f"{bad}):\n{outs[first][-3000:]}")
     return outs
 
 
@@ -4363,46 +4397,6 @@ def benchmark_phase(f1_path, t2_path):
             "launches_pooled": sum(v["launches_pooled"] for v in runs.values())}
 
 
-def serve_exported_phase(f1_path, server, frame):
-    """41. `serve_exported` of the F=1 program, a main path: the rig metas and
-    open-vocabulary matrix bound, 2 requests of the frame through
-    `TensorClient` (the first on the connection's fresh thread), each pred
-    equal to the live grid, kernel #1 once per request."""
-    from veon_tpu_torch.serve.client import TensorClient
-    from veon_tpu_torch.serve.server import serve_exported
-
-    imgs, depth_imgs, live = frame
-    d = socket_dir()
-    sock = os.path.join(d, "s.sock")
-    t = time.perf_counter()
-    srv = serve_exported(f1_path, sock, bound={"metas": server.metas,
-                                               "ov_weight": server.ov_weight},
-                         request_keys=("imgs", "depth_imgs"),
-                         arg_order=("imgs", "depth_imgs", "metas", "ov_weight"),
-                         out_names=("pred",))
-    start_s = time.perf_counter() - t
-    req = {"imgs": imgs.cpu().numpy(), "depth_imgs": depth_imgs.cpu().numpy()}
-    kernels = reset_launches()
-    rts, sms, calls = [], [], []
-    try:
-        with TensorClient(sock) as c:
-            for i in range(2):
-                out, rt, made = _served(c, kernels, req, f"serve_exported request {i}")
-                if not np.array_equal(out["pred"], live.cpu().numpy()):
-                    raise AssertionError("serve_exported pred differs from the live grid")
-                rts.append(rt)
-                sms.append(float(out["server_ms"][0]))
-                calls.append(made)
-    finally:
-        srv.stop()
-        shutil.rmtree(d, ignore_errors=True)
-    log(f"serve_exported F=1: start (load) {start_s:.3f} s, request bytes {_nbytes(req)}, "
-        f"round trip ms {[round(x, 3) for x in rts]}, server_ms {[round(x, 3) for x in sms]}, "
-        f"pred == live grid, kernel #1 {calls} per request")
-    return {"start_s": start_s, "round_trip_ms": rts, "server_ms": sms,
-            "launches_pooled": sum(calls)}
-
-
 # --------------------------------------------------------------------------
 # phase 42: camera sharding, ranks of this script sharing the card over gloo
 
@@ -5044,32 +5038,634 @@ def _export_worker(out, *argv):
     torch.save((path, seconds, launches), out)
 
 
-def export_phases():
-    """Phases 38-41 on one temporary work directory (the programs, ~6 GB,
-    deleted at the end). The three `export` calls (F=1, T=2, T=2
-    `--raw-uint8`, each writing into a directory of its own) run at once in
-    processes of this script (`--dp-worker export`): nothing times them
-    but their own host seconds, which are then contended."""
+EXPORTS = {"f1": [], "t2": ["--num-temporal", "2"], "t2_raw": ["--num-temporal", "2",
+                                                               "--raw-uint8"]}
+
+
+def export_start():
+    """Start phases 38-39's three `export` calls (F=1, T=2, T=2
+    `--raw-uint8`, each into a directory of its own under one temporary
+    work directory) at once, in processes of this script (`--dp-worker
+    export`), beside phase 33, which times nothing: nothing times them but
+    their own host seconds, which are then contended. `export_phases`
+    awaits them."""
     work = tempfile.mkdtemp(prefix="veon_export")
+    logs = os.path.join(work, "logs")
+    os.makedirs(logs)
+    ranks = _start_ranks([("export", os.path.join(logs, f"{k}.pt"), "export", "--preset",
+                           "veon_b", *a, "--work-dir", os.path.join(work, k))
+                          for k, a in EXPORTS.items()], logs, timeout=600)
+    return dict(work=work, logs=logs, ranks=ranks)
+
+
+def export_phases(exp_bg, native_bg):
+    """Phases 38-41 on `export_start`'s work directory (the programs, ~6 GB,
+    deleted at the end), and phase 43(d) while phase 38's program and live
+    server exist: phase 41's `serve_exported` is served and timed in
+    43(d)'s turns beside the daemon. 43(b) and (c) ran in the compiling
+    process (`native_bg`, `native_start`'s handle); the bundles are deleted
+    at the end."""
+    work, logs = exp_bg["work"], exp_bg["logs"]
+    native = {}
     try:
-        base = ["export", "--preset", "veon_b"]
-        argvs = {"f1": base, "t2": base + ["--num-temporal", "2"],
-                 "t2_raw": base + ["--num-temporal", "2", "--raw-uint8"]}
-        logs = os.path.join(work, "logs")
-        os.makedirs(logs)
-        _spawn_ranks([("export", os.path.join(logs, f"{k}.pt"), *a, "--work-dir",
-                       os.path.join(work, k)) for k, a in argvs.items()], logs, timeout=400)
-        made = {k: torch.load(os.path.join(logs, f"{k}.pt")) for k in argvs}
+        _wait_ranks(exp_bg["ranks"])
+        made = {k: torch.load(os.path.join(logs, f"{k}.pt")) for k in EXPORTS}
         f1_path, server, frame, f1 = export_f1_phase(made["f1"])
         t2_path, t2 = export_t2_phase({False: made["t2"], True: made["t2_raw"]})
         bench = benchmark_phase(f1_path, t2_path)
-        served = serve_exported_phase(f1_path, server, frame)
+        native_bg = native_wait(native_bg)
+        native["main"], served = native_main_path(native_bg, f1_path, server, frame)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del server, frame
     gc.collect()
     torch.cuda.empty_cache()
-    return {"export_f1": f1, "export_t2": t2, "benchmark": bench, "serve_exported": served}
+    shutil.rmtree(native_bg["work"], ignore_errors=True)
+    made = native_bg["made"]
+    native.update(ops=made["ops_check"][0],
+                  tiny=dict(made["tiny_check"][0], tiny_t2=made["tiny_t2_check"][0]),
+                  compile_wall_s=native_bg["wait_s"], worker_logs=native_bg["worker_logs"],
+                  host_builds=made["host_builds"])
+    return {"export_f1": f1, "export_t2": t2, "benchmark": bench, "serve_exported": served,
+            "native": native}
+
+
+# ---------------------------------------------------------------------------
+# Phase 43: serving with no Python in the loop (`export --native`, the op
+# library `veon_ops`, the C++ runner and daemon over libtorch)
+# ---------------------------------------------------------------------------
+
+NATIVE_HOST = ("veon_ops", "veon_aoti_runner", "veon_serve_host")
+NATIVE_COMPILE_THREADS = 1  # each compiling process's workers, beside the script
+
+
+class OpsProgram(torch.nn.Module):
+    """Kernels #1-#3 as one small program for phase 43(b): #1 on the rig's
+    presort, #2 on the full frustum's and on the K-band's stream, #3 on the
+    K-band and the far-depth spray."""
+
+    def __init__(self, num_cells, pool_r):
+        super().__init__()
+        self.num_cells, self.pool_r = num_cells, pool_r
+
+    def forward(self, depth, feat, order, rk, full_vals, full_rk, band_vals, band_rk,
+                spray_vals, spray_rk):
+        ops = torch.ops.veon
+        return (ops.bev_pool_pooled(depth, feat, order, rk, self.num_cells, self.pool_r),
+                ops.bev_pool_sorted(full_vals, full_rk, self.num_cells),
+                ops.bev_pool_sorted(band_vals, band_rk, self.num_cells),
+                ops.bev_pool_sorted2(band_vals, band_rk, spray_vals, spray_rk, self.num_cells))
+
+
+OPS_ARGS = ("depth", "feat", "order", "rk", "full_vals", "full_rk", "band_vals", "band_rk",
+            "spray_vals", "spray_rk")
+
+
+def native_ops_inputs(cfg, d):
+    """Phase 43(b)'s inputs at the flagship shapes in bf16, as kernel_phase
+    and sorted_kernel_phase make them (the rig's presort, seeded features
+    and metric depth, the full frustum's, K-band's and spray's sorted
+    streams), written to `d` as one .npy each in `OPS_ARGS` order; returns
+    (the paths, the Python ops' outputs on them saved to `d`/want.pt, the
+    kernels' launches they made)."""
+    from veon_tpu_torch.cli.shapes import example_batch_full
+    from veon_tpu_torch.geometry.frustum import sensor2keyego_chain
+    from veon_tpu_torch.lift.lss import LSSLift, two_hot_depth
+    from veon_tpu_torch.ops import bev_pool as bp
+    from veon_tpu_torch.utils.export import _write_npy
+
+    dev = torch.device("cuda")
+    _, _, metas = example_batch_full(cfg, device=dev)
+    s2k = sensor2keyego_chain(metas["sensor2egos"].reshape(1, -1, 4, 4),
+                              metas["ego2globals"].reshape(1, -1, 4, 4), 1, cfg.data.num_cams)
+    pre = LSSLift.from_config(cfg).precompute_sorted(
+        s2k[:, 0], metas["intrins"][:, 0], metas["post_rots"][:, 0], metas["post_trans"][:, 0],
+        metas["bda"])
+    h, w = cfg.feat_hw
+    C = cfg.propagation.dim
+    g = torch.Generator(device=dev).manual_seed(7)
+    feat = torch.randn(1, cfg.data.num_cams, h, w, C, generator=g, device=dev)
+    metric = torch.rand(1, cfg.data.num_cams, h, w, generator=g, device=dev) * 58.0 + 1.5
+    streams = lift_streams(cfg, metas, feat, metric, dev)
+    bf = torch.bfloat16
+    feat_flat = feat.to(bf).reshape(-1, C)
+    (fr, fv), (br, bv), (sr, sv) = (bp.sorted_stream(wt.to(bf), feat_flat, r) for wt, r in (
+        streams["full"][0], streams["band"][0], streams["band_spray"][1]))
+    args = (two_hot_depth(metric, cfg.grid).to(bf), feat.to(bf), pre["order"], pre["rk_pooled"],
+            fv, fr, bv, br, sv, sr)
+    paths = []
+    for name, t in zip(OPS_ARGS, args):
+        paths.append(os.path.join(d, f"{name}.npy"))
+        _write_npy(paths[-1], t)
+    kernels = reset_launches()
+    with torch.no_grad():
+        want = OpsProgram(int(np.prod(cfg.grid.size)), 8)(*args)
+    torch.cuda.synchronize()
+    made = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(made, {"bev_pool_pooled": 1, "bev_pool_sorted": 2, "bev_pool_sorted2": 1,
+                           "ln_dense": 0}, "the ops program's Python run")
+    torch.save([t.cpu() for t in want], os.path.join(d, "want.pt"))
+    return paths, os.path.join(d, "want.pt"), made
+
+
+def _native_worker(kind, out, work, *args):
+    """Phase 43's compiling work in a process of its own (`--dp-worker
+    native`), with at most NATIVE_COMPILE_THREADS compile workers: "bundles"
+    builds the host programs, exports the ops program (the .npy inputs in
+    args) and the three tiny bundles through the CLI (fp32: F=1, split in 2,
+    T=2), then runs 43(b) and (c) on them; "flagship" exports the VEON-B
+    F=1 bf16 bundle through the CLI and runs it in Python on 43(d)'s
+    requests, and ends: its ~2 GB of weights and their copies leave the
+    card before the memory-heavy training phases. Saves {name: (result,
+    the call's host s)} and the host builds' s to `out`."""
+    import torch._inductor.config as inductor_config
+
+    from veon_tpu_torch.cli.main import main as cli_main
+    from veon_tpu_torch.ops import bev_pool, native  # noqa: F401  (bev_pool: torch.ops.veon.*)
+    from veon_tpu_torch.utils.export import export_native_bundle, read_npy
+
+    inductor_config.compile_threads = NATIVE_COMPILE_THREADS
+    res = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        res[name] = (fn(), time.perf_counter() - t)
+        print(f"native worker: {name} {res[name][1]:.1f} s", flush=True)
+
+    if kind == "flagship":
+        timed("veon_b", lambda: cli_main(["export", "--native", "--preset", "veon_b",
+                                          "--work-dir", os.path.join(work, "veon_b")]))
+        timed("veon_b_python", lambda: _native_python_preds(res["veon_b"][0]))
+    else:
+        res["host_builds"] = {k: v["seconds"] for k, v in native.build_host(*NATIVE_HOST).items()}
+        cfg_cells = int(args[0])
+        ins = tuple(read_npy(p).cuda() for p in args[1:])
+        timed("ops", lambda: export_native_bundle(OpsProgram(cfg_cells, 8), ins,
+                                                  os.path.join(work, "ops"), OPS_ARGS, OPS_ARGS))
+        del ins
+        base = ["export", "--native", "--preset", "veon_tiny_test"]
+        for name, extra in (("tiny", []), ("tiny_split", ["--split-output", "2"]),
+                            ("tiny_t2", ["--num-temporal", "2"])):
+            timed(name, lambda extra=extra, name=name: cli_main(
+                base + extra + ["--work-dir", os.path.join(work, name)]))
+        # 43(b) and (c) time nothing: they run here, beside the script's phases
+        torch.set_num_threads(2)
+        bg = dict(made=res, work=work, paths=list(args[1:]),
+                  want=os.path.join(os.path.dirname(args[1]), "want.pt"))
+        timed("ops_check", lambda: native_ops_phase(bg))
+        timed("tiny_check", lambda: native_tiny_phase(bg))
+        timed("tiny_t2_check", lambda: native_tiny_t2_phase(bg))
+    torch.save(res, out)
+
+
+def native_requests():
+    """Phase 43(d)'s 4 requests: the example frame of VEON-B's F=1 serving
+    graph (`entry`'s) + i * 1e-3, as numpy."""
+    from veon_tpu_torch.cli.shapes import example_batch_full
+    from veon_tpu_torch.utils.export import _serving_cfg
+
+    imgs, depth_imgs, _m = example_batch_full(_serving_cfg("veon_b", compute_dtype="bfloat16"),
+                                              device="cuda")
+    return [{"imgs": (imgs + i * 1e-3).cpu().numpy(),
+             "depth_imgs": (depth_imgs + i * 1e-3).cpu().numpy()} for i in range(4)]
+
+
+def _native_python_preds(outdir):
+    """The VEON-B bundle's package loaded in this process (its extern nodes
+    calling the Python ops) and run on `native_requests`: (the grids on
+    the host, load s, kernel #1's launches)."""
+    from veon_tpu_torch.utils.export import NativeBundle
+
+    b = NativeBundle(outdir)
+    t = time.perf_counter()
+    run_py = b.load_python()
+    load_s = time.perf_counter() - t
+    kernels = reset_launches()
+    with torch.no_grad():
+        preds = [run_py(b.flat_inputs(r, "cuda"))["pred"].cpu() for r in native_requests()]
+    return preds, load_s, kernels["bev_pool_pooled"].launches
+
+
+def native_start(cfg):
+    """Start phase 43's compiling processes (`_native_worker`) right after
+    the kernels are timed: the flagship's AOTInductor compile takes minutes
+    and runs beside the phases that follow. Returns the handle
+    `native_wait` takes."""
+    work = tempfile.mkdtemp(prefix="veon_native")
+    d = os.path.join(work, "ops_in")
+    os.makedirs(d)
+    t = time.perf_counter()
+    paths, want, made = native_ops_inputs(cfg, d)
+    inputs_s = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    logs = os.path.join(work, "logs")
+    os.makedirs(logs)
+    cells = str(int(np.prod(cfg.grid.size)))
+    argvs = {"flagship": ("native", "flagship", os.path.join(logs, "flagship.pt"), work),
+             "bundles": ("native", "bundles", os.path.join(logs, "bundles.pt"), work, cells,
+                         *paths)}
+    log(f"phase 43(a): the ops program's inputs ({inputs_s:.1f} s, "
+        f"{sum(os.path.getsize(p) for p in paths) / 1e9:.3f} GB of .npy) and its Python run "
+        f"({made}); veon_b and the small bundles compiling in 2 processes")
+    ranks = {}
+    for name, argv in argvs.items():  # one handle each: a failure stops only its own
+        os.makedirs(os.path.join(logs, name))
+        ranks[name] = _start_ranks([argv], os.path.join(logs, name), timeout=1100)
+    return dict(work=work, logs=logs, paths=paths, want=want, t=time.perf_counter(),
+                ranks=ranks)
+
+
+def native_wait(bg):
+    """Wait for `native_start`'s processes: adds their results ("made":
+    {name: (dir, s)}) and the seconds from their start to their end.
+    Raises with the failed processes' output once both have ended."""
+    outs, errors = [], []
+    for name, handle in bg["ranks"].items():
+        try:
+            outs += _wait_ranks(handle)
+        except AssertionError as e:
+            errors.append(f"{name}: {e}")
+    if errors:
+        raise AssertionError("phase 43(a) compiling processes failed:\n" + "\n".join(errors))
+    made = {}
+    for name in ("flagship", "bundles"):
+        made.update(torch.load(os.path.join(bg["logs"], f"{name}.pt"), weights_only=False))
+    bg.update(made=made, wait_s=round(time.perf_counter() - bg["t"], 1), worker_logs=[
+        ln for o in outs for ln in o.splitlines() if ln.startswith("native worker:")])
+    log(f"phase 43(a): compiling processes done {bg['wait_s']} s after their start: "
+        f"{bg['worker_logs']}; host builds {made['host_builds']}")
+    for o in outs:  # 43(b) and (c), which ran in the compiling process
+        for ln in o.splitlines():
+            if ln.startswith(("phase 43(b)", "phase 43(c)")):
+                log(ln)
+    return bg
+
+
+def _daemon(bundle, sock):
+    """`veon_serve_host` serving `bundle` on `sock`, started and awaited
+    (its socket exists): (process, start s)."""
+    t = time.perf_counter()
+    proc = subprocess.Popen(bundle.daemon_argv(sock), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    _RANKS.append(proc)
+    while not os.path.exists(sock):
+        if proc.poll() is not None:
+            raise AssertionError(f"veon_serve_host exited {proc.returncode}: "
+                                 f"{proc.stderr.read()[-3000:]}")
+        if time.perf_counter() - t > 300:
+            raise AssertionError("veon_serve_host did not listen within 300 s")
+        time.sleep(0.05)
+    return proc, time.perf_counter() - t
+
+
+def _daemon_stop(proc):
+    """Stop a daemon: (its served-request lines, parsed, and its stderr)."""
+    proc.terminate()
+    out, err = proc.communicate(timeout=60)
+    lines = []
+    for ln in out.splitlines():
+        if ln.startswith("served request"):
+            counts = dict(kv.split("=") for kv in ln.split("launches ")[1].split(";")[0].split())
+            lines.append({"server_ms": float(ln.split("server_ms ")[1].split(";")[0]),
+                          "launches": {k: int(v) for k, v in counts.items()},
+                          "peak_bytes": int(ln.split("device peak ")[1].split()[0])})
+    return lines, err
+
+
+def native_ops_phase(bg):
+    """43(b), in the compiling process: the ops program's package through
+    `veon_aoti_runner`, which
+    loads the op library `veon_ops` first: its four outputs bit-equal to
+    the Python ops' on the same inputs (the same kernels, no atomics in
+    their forward), the library's counters #1 once, #2 twice (full frustum
+    and K-band), #3 once; `--probe` reports the card."""
+    from veon_tpu_torch.utils.export import NativeBundle, read_npy
+
+    b = NativeBundle(bg["made"]["ops"][0])
+    probe = subprocess.run(b.runner_argv([], "x")[:3] + ["--probe"], capture_output=True,
+                           text=True, timeout=300)
+    if probe.returncode != 0 or "package device: cuda" not in probe.stdout \
+            or "op library: cuda" not in probe.stdout:
+        raise AssertionError(f"runner --probe: {probe.returncode} {probe.stdout} {probe.stderr}")
+    prefix = os.path.join(bg["work"], "ops_out_")
+    t = time.perf_counter()
+    r = subprocess.run(b.runner_argv(bg["paths"], prefix), capture_output=True, text=True,
+                       timeout=600)
+    run_s = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(f"veon_aoti_runner on the ops package: {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    counts = dict(kv.split("=") for kv in r.stdout.split("launches ")[1].split())
+    counts = {k: int(v) for k, v in counts.items()}
+    if counts != {"bev_pool_pooled": 1, "bev_pool_sorted": 2, "bev_pool_sorted2": 1}:
+        raise AssertionError(f"the op library counted {counts}")
+    names = ("#1 pooled", "#2 full frustum", "#2 K-band", "#3 band + spray")
+    for i, (name, want) in enumerate(zip(names, torch.load(bg["want"]))):
+        got = read_npy(f"{prefix}{i}.npy")
+        if got.dtype != want.dtype or not torch.equal(got.view(torch.int16),
+                                                      want.view(torch.int16)):
+            raise AssertionError(f"{name}: the C++ op differs from the Python op")
+    res = {"launches": counts, "runner_s": run_s, "probe": probe.stdout.strip().splitlines(),
+           "package_bytes": os.path.getsize(b.package), "export_s": b.manifest["export_s"],
+           "compile_s": b.manifest["compile_s"]}
+    log(f"phase 43(b): veon_ops' CUDA #1, #2 (full, K-band), #3 bit-equal to the Python ops at "
+        f"the flagship shapes (bf16) through veon_aoti_runner ({run_s:.1f} s, inputs from "
+        f".npy); library counters {counts}; probe {res['probe']}")
+    return res
+
+
+def _client_roll(resp, req, prev):
+    """The next request's cache: early_vox first (newest), this pose first."""
+    vox, l2g = prev
+    early = torch.as_tensor(np.asarray(resp["early_vox"]))
+    return (torch.cat([early[:, None].to(vox.dtype), vox[:, :-1]], 1),
+            torch.cat([torch.as_tensor(req["lidarego2global"])[:, None], l2g[:, :-1]], 1))
+
+
+def _cli_seeded_on_cpu(cfg):
+    """The model the CLI's exporters seed on the card (`build_model`, seed
+    0), on the CPU."""
+    from veon_tpu_torch.entry import build_model
+
+    on_card = build_model(cfg, torch.device("cuda"), 0, None)
+    model = build_model(cfg, torch.device("cpu"), 1, None)
+    model.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    return model.eval()
+
+
+def native_tiny_phase(bg):
+    """43(c)'s F=1 part, in the compiling process: the tiny fp32
+    F=1 bundles on the card, whole and split in 2 (joined back), each
+    served by `veon_serve_host` to `TensorClient` against the live port
+    module on the CPU with the same weights (the CLI's seed on the card,
+    moved to the CPU): the class grid off near-ties."""
+    from veon_tpu_torch.cli.shapes import example_batch
+    from veon_tpu_torch.entry import ServingForward, _ov_weight
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.utils.export import NativeBundle, _serving_cfg
+
+    cpu = torch.device("cpu")
+    res = {}
+    cfg = _serving_cfg("veon_tiny_test")
+    model = _cli_seeded_on_cpu(cfg)
+    ovw, membership = _ov_weight(cfg, cpu, seed=0)
+    live = ServingForward(model, membership).eval()
+    imgs, _d, _m = example_batch(cfg, device=cpu)
+    # the bundle takes depth-tower frames at the frames' size, as JAX's
+    depth_imgs = torch.from_numpy(
+        np.random.default_rng(5).standard_normal(imgs.shape).astype(np.float32))
+    for name in ("tiny", "tiny_split"):
+        b = NativeBundle(bg["made"][name][0])
+        binds = b.binds()
+        metas = {n.split(".", 1)[1]: t for n, t in binds.items() if n.startswith("metas.")}
+        with torch.no_grad():
+            out = model.full_forward(imgs, depth_imgs, metas, ovw)
+            want = live(imgs, depth_imgs, metas, ovw)
+        clear = ~near_ties(out, membership)
+        d = socket_dir()
+        proc, start_s = _daemon(b, os.path.join(d, "s.sock"))
+        try:
+            with TensorClient(os.path.join(d, "s.sock")) as c:
+                resp = b.concat_split(c.infer(imgs=imgs.numpy(), depth_imgs=depth_imgs.numpy()))
+        finally:
+            lines, _err = _daemon_stop(proc)
+            shutil.rmtree(d, ignore_errors=True)
+        got = torch.from_numpy(resp["pred"])
+        diff = int(((got != want) & clear).sum())
+        if diff or clear.float().mean() < 0.95:  # seeded weights: ~2.5% near-ties
+            raise AssertionError(f"{name}: served grid differs off near-ties in {diff} voxels "
+                                 f"(clear share {float(clear.float().mean()):.4f})")
+        res[name] = {"agree_all": float((got == want).float().mean()),
+                     "clear": float(clear.float().mean()), "start_s": start_s,
+                     "server_ms": lines[-1]["server_ms"], "launches": lines[-1]["launches"],
+                     "compile_s": b.manifest["compile_s"], "parts": len(b.manifest["outputs"])}
+    log(f"phase 43(c): tiny fp32 F=1 bundles on the card served by veon_serve_host against "
+        f"the live CPU module: {res}")
+    return res
+
+
+def native_tiny_t2_phase(bg):
+    """43(c)'s T=2 part, in the compiling process: the tiny fp32
+    T=2 bundle on the card served by `veon_serve_host` to `TensorClient`,
+    3 drive calls with the cache rolled by the client, against the live
+    port session on the CPU with the same weights: the float outputs
+    within 2e-4, the class grid off near-ties."""
+    from veon_tpu_torch.cli.shapes import example_drive
+    from veon_tpu_torch.entry import _ov_weight
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.serve.streaming import TemporalSession
+    from veon_tpu_torch.utils.export import NativeBundle, _serving_cfg
+
+    cpu = torch.device("cpu")
+    # the bundle's bound rig, the drive's frames, the cache rolled here
+    b = NativeBundle(bg["made"]["tiny_t2"][0])
+    binds = b.binds()
+    tcfg = _serving_cfg("veon_tiny_test", 2)
+    tmodel = _cli_seeded_on_cpu(tcfg)
+    tovw, membership = _ov_weight(tcfg, cpu, seed=0)
+    rig = {}
+    for n, t in binds.items():
+        if n.startswith("rig."):
+            *path, leaf = n.split(".")[1:]
+            node = rig
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = t
+    sess = TemporalSession(tmodel, tovw, membership, rig_metas=rig)
+    _rig, reqs = example_drive(tcfg, 3, device=cpu)
+    shapes = dict(zip(b.manifest["order"], b.manifest["in_shapes"]))
+    vox = torch.zeros([int(s) for s in shapes["prev_vox"].split("[")[1][:-1].split(",")])
+    prev = (vox, torch.eye(4).expand(1, vox.shape[1], 4, 4).clone())
+    te = torch.zeros(tcfg.propagation.clip_proj_dim)
+    d = socket_dir()
+    proc, start_s = _daemon(b, os.path.join(d, "s.sock"))
+    errs, agree = {}, []
+    try:
+        with TensorClient(os.path.join(d, "s.sock")) as c:
+            for req in reqs:
+                with torch.no_grad():
+                    want = sess.infer(req["imgs"], req["depth_imgs"],
+                                      {"lidarego2global": req["lidarego2global"]})
+                rnp = {k: v.numpy() for k, v in req.items()}
+                resp = c.infer(prev_vox=prev[0].numpy(), prev_l2g=prev[1].numpy(),
+                               text_embed=te.numpy(), **rnp)
+                prev = _client_roll(resp, rnp, prev)
+                for k, w in want.items():
+                    g = torch.from_numpy(np.asarray(resp[k]))
+                    if k == "pred":
+                        clear = ~near_ties(want, membership)
+                        if int(((g != w) & clear).sum()):
+                            raise AssertionError("T=2 served grid differs off near-ties")
+                        agree.append(float((g == w).float().mean()))
+                    elif w.is_floating_point():
+                        errs[k] = max(errs.get(k, 0.0), float((g - w).abs().max()))
+                        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4,
+                                                   msg=f"T=2 served {k}: {errs}")
+    finally:
+        lines, _err = _daemon_stop(proc)
+        shutil.rmtree(d, ignore_errors=True)
+    res = {"calls": len(reqs), "max_abs_err": errs, "agree_all": agree,
+           "start_s": start_s, "server_ms": [ln["server_ms"] for ln in lines],
+           "launches": lines[-1]["launches"], "compile_s": b.manifest["compile_s"]}
+    log(f"phase 43(c): tiny fp32 T=2 bundle on the card served by veon_serve_host against the "
+        f"live CPU session: {res}")
+    return res
+
+
+def native_main_path(bg, f1_path, server, frame):
+    """43(d), a main path: `veon_serve_host` serving the VEON-B F=1 bf16
+    bundle (phase 43(a)'s compile) to `TensorClient`, 1 warm-up and 3
+    requests on the synthetic rig's frame (+ i * 1e-3, `native_requests`),
+    kernel #1 once per request by the op library's counter; each grid
+    bit-equal to the same package loaded in Python (its extern nodes
+    calling the Python ops; run on the same requests by the compiling
+    process, `_native_python_preds`), and agreeing with the live bf16 `FrameServer`
+    (the same seeded weights) off near-ties (flip < 0.15, the bf16 floor).
+    server_ms of the daemon, of `serve_exported` (phase 38's program) and
+    the live frame's ms, timed in turns; the daemon's allocator peak and
+    its whole device memory after request 0 (the card's free memory before
+    its start less after, less what this process reserved meanwhile).
+    Phase 41 rides along: each `serve_exported` pred equal to the live
+    grid, kernel #1 once per request. Returns (43(d)'s results, 41's)."""
+    from veon_tpu_torch.serve.client import TensorClient
+    from veon_tpu_torch.serve.server import serve_exported
+    from veon_tpu_torch.utils.export import NativeBundle
+
+    phase_base()
+    imgs, depth_imgs, live0 = frame
+    b = NativeBundle(bg["made"]["veon_b"][0])
+    (py_preds, load_py_s, py_launches), _s = bg["made"]["veon_b_python"]
+    d = socket_dir()
+    sock, sock_x = os.path.join(d, "s.sock"), os.path.join(d, "x.sock")
+    torch.cuda.synchronize()
+    free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+    proc, start_s = _daemon(b, sock)
+    t = time.perf_counter()
+    srv = serve_exported(f1_path, sock_x, bound={"metas": server.metas,
+                                                 "ov_weight": server.ov_weight},
+                         request_keys=("imgs", "depth_imgs"),
+                         arg_order=("imgs", "depth_imgs", "metas", "ov_weight"),
+                         out_names=("pred",))
+    x_start_s = time.perf_counter() - t
+    kernels = reset_launches()
+    turns = {"daemon": [], "serve_exported": [], "live": []}
+    agree, x_rts, x_sms, x_calls = [], [], [], []
+    try:
+        with TensorClient(sock) as c, TensorClient(sock_x) as cx:
+            for i, req in enumerate(native_requests()):  # request 0 warms every server up
+                im, dm = imgs + i * 1e-3, depth_imgs + i * 1e-3
+                before = {k: f.launches for k, f in kernels.items()}
+                resp = c.infer(**req)
+                if any(f.launches != before[k] for k, f in kernels.items()):
+                    raise AssertionError("the daemon's request launched a Python op")
+                if i == 0:  # the card's memory less what this process held before
+                    held = free0 - torch.cuda.mem_get_info()[0] - (
+                        torch.cuda.memory_reserved() - reserved0)
+                rx, rt, made = _served(cx, kernels, req, f"serve_exported request {i}")
+                x_rts.append(rt)
+                x_sms.append(float(np.asarray(rx["server_ms"]).reshape(-1)[0]))
+                x_calls.append(made)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with torch.no_grad():
+                    live = server(im, dm)
+                torch.cuda.synchronize()
+                live_ms = (time.perf_counter() - t) * 1e3
+                if not np.array_equal(rx["pred"], live.cpu().numpy()):
+                    raise AssertionError(f"serve_exported request {i}: pred differs from the "
+                                         f"live grid")
+                with torch.no_grad():
+                    out = server.outputs(im, dm)
+                got = torch.from_numpy(resp["pred"])
+                if not torch.equal(got, py_preds[i]):
+                    raise AssertionError(f"request {i}: the daemon's grid differs from the same "
+                                         f"package run in Python in "
+                                         f"{int((got != py_preds[i]).sum())} voxels")
+                got = got.cuda()
+                if i == 0:
+                    if not torch.equal(live, live0):
+                        raise AssertionError("the live frame differs from phase 38's")
+                    continue
+                clear = ~near_ties(out, server.membership)
+                agree.append(float((got == live)[clear].float().mean()))
+                turns["daemon"].append(float(np.asarray(resp["server_ms"]).reshape(-1)[0]))
+                turns["serve_exported"].append(x_sms[-1])
+                turns["live"].append(live_ms)
+    finally:
+        srv.stop()
+        lines, err = _daemon_stop(proc)
+        shutil.rmtree(d, ignore_errors=True)
+    per = [ln["launches"]["bev_pool_pooled"] for ln in lines]
+    if per != [1, 2, 3, 4] or any(ln["launches"]["bev_pool_sorted"] or
+                                  ln["launches"]["bev_pool_sorted2"] for ln in lines):
+        raise AssertionError(f"daemon launch counts {[ln['launches'] for ln in lines]}")
+    if py_launches != 4:
+        raise AssertionError(f"the package run in Python launched #1 {py_launches} times")
+    if min(agree) < 0.85:
+        raise AssertionError(f"daemon grid agrees with the live bf16 frame on {agree} off "
+                             f"near-ties (< 0.85)")
+    res = {"requests": 4, "launches_pooled": per[-1], "agree_live_off_ties": agree,
+           "grid_equal_python": True, "server_ms_in_turns": turns,
+           "first_server_ms": lines[0]["server_ms"], "daemon_start_s": start_s,
+           "python_load_s": load_py_s, "daemon_peak_bytes": lines[-1]["peak_bytes"],
+           "daemon_device_bytes": held, "export_s": b.manifest["export_s"],
+           "compile_s": b.manifest["compile_s"], "package_bytes": os.path.getsize(b.package),
+           "cli_s": bg["made"]["veon_b"][1]}
+    log(f"phase 43(d) veon_serve_host veon_b F=1 bf16: 4 requests, #1 by the op library "
+        f"{per}, grids == the package run in Python, agreement with the live bf16 frame off "
+        f"near-ties {agree}; server_ms in turns {turns}; first request {lines[0]['server_ms']:.3f}"
+        f" ms; daemon start (load + binds) {start_s:.3f} s, package load in Python "
+        f"{load_py_s:.3f} s; the daemon's allocator peak {lines[-1]['peak_bytes'] / 2**30:.3f} "
+        f"GiB, its whole device memory after request 0 {held / 2**30:.3f} GiB (context, "
+        f"weights, allocator); export {res['export_s']:.1f} s, compile "
+        f"{res['compile_s']:.1f} s, package {res['package_bytes']} bytes")
+    served = {"start_s": x_start_s, "round_trip_ms": x_rts, "server_ms": x_sms,
+              "launches_pooled": sum(x_calls)}
+    log(f"serve_exported F=1 (phase 41, in 43(d)'s turns): start (load) {x_start_s:.3f} s, "
+        f"round trip ms {[round(x, 3) for x in x_rts]}, server_ms "
+        f"{[round(x, 3) for x in x_sms]}, pred == live grid, kernel #1 {x_calls} per request")
+    return res, served
+
+
+def tools_phase(frame_ms):
+    """43(e), the analysis tools at VEON-B bf16 on the card:
+    `utils/train_bench.py` `main` (the forward and loss alone, 1 timed
+    step under remat full and none after an untimed one, one untimed step
+    under dots_saveable for its peak; #3 once per call and step, the
+    cached-depth batch) and `utils/roofline.py` `print_audit` (the F=1
+    graph's floors at the H100 data-sheet peaks), whose floor is read as a
+    share of phase 6's measured ms/frame."""
+    import contextlib
+    import io
+
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.utils import roofline, train_bench
+
+    phase_base()
+    kernels = reset_launches()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rows = train_bench.main(["--preset", "veon_b", "--steps", "1", "--policies", "true,none",
+                                 "--compile-only-policies", "dots_saveable"])
+    seconds = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    expect_launches(launches, {k: 7 * int(k == "bev_pool_sorted2") for k in launches},
+                    "train_bench veon_b bf16")
+    if any("run_error" in r for r in rows) or len(rows) != 4:
+        raise AssertionError(f"train_bench legs: {rows}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        audit = roofline.print_audit(presets.veon_b(), as_json=True)
+    res = {"train_bench": rows, "train_bench_s": seconds, "launches_sorted2": 7,
+           "roofline_floor_ms": audit["floor_ms"], "roofline_total_gflop": audit["total_gflop"],
+           "roofline_total_mb_min": audit["total_mb_min"],
+           "frame_share_of_floor": audit["floor_ms"] / frame_ms}
+    log(f"phase 43(e) train_bench veon_b bf16 ({seconds:.1f} s): {rows}; roofline veon_b "
+        f"floor {audit['floor_ms']} ms ({audit['total_gflop']} GFLOP, "
+        f"{audit['total_mb_min']} MB least traffic, H100 data-sheet peaks), the measured frame "
+        f"({frame_ms:.3f} ms) at {res['frame_share_of_floor']:.4f} of it")
+    return res
 
 
 def main():
@@ -5079,6 +5675,11 @@ def main():
     from veon_tpu_torch.configs import presets
     from veon_tpu_torch.ops import native
 
+    # phase 43's AOTInductor and Triton caches in the checkout's build/ (this
+    # process's and its workers'): a second run reuses the first's kernels
+    build_root = native.BUILD_DIR.parent
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build_root / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build_root / "triton"))
     script_t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -5098,9 +5699,10 @@ def main():
     laps, last = {}, [time.perf_counter()]
 
     def lap(name):
-        """Seconds since the last lap, kept per group of phases."""
+        """Seconds since the last lap, kept per group of phases (and logged)."""
         now = time.perf_counter()
         laps[name], last[0] = round(now - last[0], 1), now
+        log(f"lap {name}: {laps[name]} s ({now - script_t0:.1f} s in)")
 
     cfg = presets.veon_b(compute_dtype="bfloat16")
     kern, (metas, pre, feat, metric, dist) = kernel_phase(cfg)
@@ -5110,6 +5712,9 @@ def main():
     torch.cuda.empty_cache()
     ln = ln_dense_phase()
     lap("1-2 kernels")
+    # phase 43(a): the AOTInductor compiles start now, after the kernels' timings
+    native_bg = native_start(cfg)
+    lap("43(a) start")
     train_small = train_parity_phase()
     train = train_phase(cfg)
     lap("3-4 train step")
@@ -5143,8 +5748,10 @@ def main():
         del variables
         gc.collect()
         torch.cuda.empty_cache()
-        # phase 42's untimed ranks run beside the parity check, which times nothing
+        # phase 42's untimed ranks and phases 38-39's exports run beside the
+        # parity check, which times nothing
         camshard_bg = camshard_start()
+        export_bg = export_start()
         lap("17 precision")
         parity = parity_phase(ckpt_root)
         camshard_bg = camshard_wait(camshard_bg)
@@ -5193,7 +5800,7 @@ def main():
         lap("30 temporal parity")
         temporal_cli = temporal_cli_phase(shard, frames=2)
         lap("31 temporal CLI")
-        data_parallel = data_parallel_phase(shard)
+        data_parallel = data_parallel_phase(shard, rounds=6)  # 12 cost the script's time
         lap("32 data parallel")
         vis = vis_phase(shard)
         lap("34 vis")
@@ -5205,8 +5812,9 @@ def main():
     lap("36 rec options")
     prof = profiling_phase()
     lap("37 profiling")
-    exported = export_phases()
-    lap("38-41 export, benchmarks, serve_exported")
+    exported = export_phases(export_bg, native_bg)
+    tools = tools_phase(main_res["median_ms"])
+    lap("38-41 export, benchmarks, serve_exported; 43 native serving, tools")
     camshard = camshard_phase(camshard_bg)
     lap("42 camera sharding")
 
@@ -5221,7 +5829,9 @@ def main():
     # lift microbench's calls (#2); phases 38-41: the exported programs'
     # calls, the benchmarks' calls and the requests served from a program
     # (#1); phase 42: every rank's sharded frames and streaming calls (#2)
-    # and sharded train steps (#3)
+    # and sharded train steps (#3); phase 43(d): the requests the C++ daemon
+    # served, by the op library's counter (#1); 43(e): train_bench's calls
+    # and steps (#3)
     rows = {"bev_pool_pooled": (kern["bf16"], main_res["launches"]["bev_pool_pooled"]
                                 + sum(weights["launches_per_request"])
                                 + new_presets["launches"]["bev_pool_pooled"]
@@ -5233,7 +5843,8 @@ def main():
                                 + exported["export_t2"]["float"]["launches_pooled"]
                                 + exported["export_t2"]["raw_uint8"]["launches_pooled"]
                                 + exported["benchmark"]["launches_pooled"]
-                                + exported["serve_exported"]["launches_pooled"]),
+                                + exported["serve_exported"]["launches_pooled"]
+                                + exported["native"]["main"]["launches_pooled"]),
             "bev_pool_sorted": (sorted_res["full_bf16"],
                                 train["full"]["launches"]["bev_pool_sorted"]
                                 + temporal_cli["launches_sorted"]
@@ -5249,7 +5860,8 @@ def main():
                                  + temporal_cli["launches_sorted2"]
                                  + data_parallel["launches_sorted2"]
                                  + parity["launches_sorted2"] + vis["launches_sorted2"]
-                                 + remat["launches_sorted2"] + camshard["launches_sorted2"]),
+                                 + remat["launches_sorted2"] + camshard["launches_sorted2"]
+                                 + tools["launches_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
                          + temporal["launches"]["ln_dense"])}
@@ -5277,7 +5889,7 @@ def main():
                    "temporal_train_parity": temporal_train_small,
                    "temporal_cli": temporal_cli, "data_parallel": data_parallel,
                    "parity": parity, "vis": vis, "remat": remat, "rec_options": rec_opts,
-                   "profiling": prof, "export": exported, "camshard": camshard,
+                   "profiling": prof, "export": exported, "camshard": camshard, "tools": tools,
                    "builds": {k: v["seconds"] for k, v in builds.items()}, "phase_s": laps,
                    "script_s": time.perf_counter() - script_t0},
                   f, indent=1)
@@ -5293,10 +5905,10 @@ def main():
     return 0
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp-worker"]:  # a process of phase 32, 38-39 or 42 (_start_ranks)
+    if sys.argv[1:2] == ["--dp-worker"]:  # a process of phase 32, 38-39, 42 or 43
         {"step": _dp_step_worker, "cli": _dp_cli_worker, "cs_tiny": _cs_tiny_worker,
          "cs_serve": _cs_serve_worker, "cs_main2": _cs_main2_worker,
-         "export": _export_worker}[sys.argv[2]](*sys.argv[3:])
+         "export": _export_worker, "native": _native_worker}[sys.argv[2]](*sys.argv[3:])
         sys.exit(0)
     try:
         sys.exit(main())

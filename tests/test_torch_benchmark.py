@@ -9,6 +9,7 @@ versions: these tests check names, shapes and flow, not speeds."""
 
 import argparse
 import json
+import os
 
 import numpy as np
 import pytest
@@ -73,13 +74,17 @@ def test_benchmark_cli_live_and_streaming(monkeypatch, capsys, argv, metric):
 
 def test_export_cli_f1_and_refusals(tmp_path, capsys):
     """`export` writes <work-dir>/veon_infer.pt2 (bf16, the flagship's
-    dtype) that `benchmark --artifact` times; `--raw-uint8` at F=1 and
-    `--native` are refused, the latter naming its ROADMAP item."""
+    dtype) that `benchmark --artifact` times; `--raw-uint8` at F=1 is
+    refused, and so is `--native` at F=1 for a preset other than veon_b and
+    the tiny smoke preset (JAX's rule: the F=1 bundle is the flagship's
+    graph), before anything is built."""
     base = ["export", "--preset", TINY, "--device", "cpu", "--work-dir", str(tmp_path)]
     with pytest.raises(SystemExit, match="needs --num-temporal > 1"):
         cli.main(base + ["--raw-uint8"])
-    with pytest.raises(NotImplementedError, match="item 25"):
-        cli.main(base + ["--native"])
+    with pytest.raises(SystemExit, match="veon_b flagship graph only .or veon_tiny_test"):
+        cli.main(["export", "--preset", "veon_b_fast", "--device", "cpu", "--work-dir",
+                  str(tmp_path), "--native"])
+    assert not os.path.exists(tmp_path / "veon_native")
     path = cli.main(base)
     assert path == str(tmp_path / "veon_infer.pt2")
     args = t_export.load_program(path).example_inputs[0]

@@ -2,16 +2,18 @@
 the JAX reference at `veon_tiny_test` size with perturbed weights, and the
 conversions that carry arrays between the two frameworks as numpy.
 
-Also holds the port's import-hygiene test: the port package,
+Also holds the port's import-hygiene tests: the port package,
 `chip_smoke.py` and the mirror modules it imports import no JAX, flax or
 `veon_tpu`, and neither `ml_dtypes` nor `sklearn`, which the card's
-machine lacks.
+machine lacks; the port's C/C++ sources include nothing under `veon_tpu/`
+and its build code names no source there.
 """
 
 import ast
 import dataclasses
 import functools
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -154,3 +156,26 @@ def test_port_imports_no_jax_flax_or_reference():
     bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in _BANNED]
     assert not bad, bad
+
+
+def test_port_native_sources_stand_alone():
+    """Every `#include "..."` of the port's C/C++ sources resolves inside
+    `veon_tpu_torch/csrc/`, no `#include <...>` names `veon_tpu`, and the
+    build code (`ops/native.py`, `data/native.py`) holds no path into the
+    JAX package (no path-like string constant names it)."""
+    csrc = REPO / "veon_tpu_torch" / "csrc"
+    files = sorted(p for p in csrc.rglob("*") if p.suffix in (".h", ".cuh", ".cpp", ".cu"))
+    assert len(files) >= 8, files
+    for p in files:
+        for quote, inc in re.findall(r'#\s*include\s*([<"])([^>"]+)[>"]', p.read_text()):
+            assert "veon_tpu" not in inc.split("/")[0], (p.name, inc)
+            if quote == '"':
+                target = (p.parent / inc).resolve()
+                assert target.is_file() and csrc in target.parents, (p.name, inc)
+    for rel in ("ops/native.py", "data/native.py"):
+        tree = ast.parse((REPO / "veon_tpu_torch" / rel).read_text())
+        consts = [n.value for n in ast.walk(tree)  # path-like strings, not prose
+                  if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                  and not re.search(r"\s", n.value)]
+        bad = [c for c in consts if c == "veon_tpu" or re.search(r"veon_tpu[/\\]", c)]
+        assert not bad, (rel, bad)

@@ -350,3 +350,52 @@ def test_sorted_kernel_on_a_shards_presorted_stream(card, num_shards, dtype):
             torch.testing.assert_close(got32, want32, rtol=1e-5, atol=1e-5)
         else:
             torch.testing.assert_close(got32, want32, rtol=2 ** -7, atol=1e-5)
+
+
+_CPP_OPS_CHILD = r"""
+import sys, torch
+lib, d = sys.argv[1], sys.argv[2]
+torch.ops.load_library(lib)
+t = {k: v.cuda() for k, v in torch.load(d + "/in.pt").items()}
+ops = torch.ops.veon
+out = [ops.bev_pool_pooled(t["depth"], t["feat"], t["order"], t["rk"], t["num_cells"].item(), 8),
+       ops.bev_pool_sorted(t["v1"], t["r1"], t["cells"].item()),
+       ops.bev_pool_sorted2(t["v1"], t["r1"], t["v2"], t["r2"], t["cells"].item())]
+torch.cuda.synchronize()
+import ctypes
+n = ctypes.CDLL(lib)
+n.veon_ops_launches.restype = ctypes.c_longlong
+counts = [n.veon_ops_launches(s) for s in (b"bev_pool_pooled", b"bev_pool_sorted",
+                                          b"bev_pool_sorted2")]
+torch.save({"out": [o.cpu() for o in out], "counts": counts}, d + "/out.pt")
+"""
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpp_ops_bit_equal_python_ops(card, tmp_path, dtype):
+    """`veon_ops` (kernels #1-#3 registered in C++, loaded by a process of
+    its own: this one holds the Python ops of the same names) launches the
+    same kernels as the Python ops: bit-equal outputs, one launch each by
+    its own counters."""
+    import subprocess
+    import sys
+
+    from veon_tpu_torch.ops import native
+
+    native.build_host("veon_ops")
+    depth, feat, order, rk, num_cells = _pooled_case(card, 256, dtype)
+    v1, r1 = _stream(card, 5000, 256, 4096, dtype, seed=1)
+    v2, r2 = _stream(card, 3000, 256, 4096, dtype, seed=2)
+    torch.save({"depth": depth.cpu(), "feat": feat.cpu(), "order": order.cpu(), "rk": rk.cpu(),
+                "num_cells": torch.tensor(num_cells), "v1": v1.cpu(), "r1": r1.cpu(),
+                "v2": v2.cpu(), "r2": r2.cpu(), "cells": torch.tensor(4096)},
+               tmp_path / "in.pt")
+    r = subprocess.run([sys.executable, "-c", _CPP_OPS_CHILD, str(native.host_path("veon_ops")),
+                        str(tmp_path)], capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    got = torch.load(tmp_path / "out.pt")
+    want = [bp.bev_pool_pooled(depth, feat, order, rk, num_cells, 8),
+            bp.bev_pool_sorted(v1, r1, 4096), bp.bev_pool_sorted2(v1, r1, v2, r2, 4096)]
+    for g, w in zip(got["out"], want):
+        assert g.dtype == w.dtype and torch.equal(g, w.cpu())
+    assert got["counts"] == [1, 1, 1]

@@ -213,10 +213,13 @@ def test_benchmark_eval_tiny_all_legs(monkeypatch, tmp_path, capsys):
     pytest.param(["train", "--remat", "save_only_these_names"], ValueError, "factory",
                  id="argv3-item 11a"),
     # the ids name the items these two cases refused before `benchmark` and
-    # `export` were ported (23, 21); what stays refused of export is tested
+    # `export` were ported (23, 21); what stays refused of export is tested:
+    # --raw-uint8 at F=1, and --native at F=1 for a preset other than veon_b
+    # and the tiny smoke preset (JAX's rule), refused before anything is built
     pytest.param(["export", "--raw-uint8"], SystemExit, "needs --num-temporal > 1",
                  id="argv5-item 23"),
-    pytest.param(["export", "--native"], NotImplementedError, "item 25", id="argv6-item 21"),
+    pytest.param(["export", "--native", "--preset", "veon_b_fast"], SystemExit,
+                 "veon_b flagship graph only", id="argv6-item 21"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, error, item):
     with pytest.raises(error, match=item):

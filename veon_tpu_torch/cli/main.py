@@ -4,7 +4,8 @@
 POP-3D retrieval AP with --retrieval), `cache-depth`, `create-infos`,
 `benchmark` (the live F=1 graph, the streaming step, an exported program,
 or with --eval the `test` loop), `export` (the serving graph as a
-`torch.export` `.pt2` program), `parity` (weights day: a reference dump
+`torch.export` `.pt2` program, or with --native an AOTInductor bundle for
+the C++ daemon), `parity` (weights day: a reference dump
 replayed boundary by boundary) and `vis` (occupancy images, point cloud,
 semantic overlays) subcommands. `text_classifier`, the counterpart of the reference's
 `_text_classifier`, lives in `nn/text.py` and is re-exported here.
@@ -37,7 +38,7 @@ semantic overlays) subcommands. `text_classifier`, the counterpart of the refere
     python -m veon_tpu_torch.cli.main benchmark [--preset veon_l] \
         [--num-temporal 2 | --artifact work_dir/veon_infer.pt2]
     python -m veon_tpu_torch.cli.main export --work-dir work_dir \
-        [--num-temporal 2 [--raw-uint8]]
+        [--num-temporal 2 [--raw-uint8]] [--native [--split-output 2]]
     python -m veon_tpu_torch.cli.main parity --dumps dump_dir \
         [--weights-dir ckpts/ | --load-from SAN.pth --depth-load-from depth.pth]
     python -m veon_tpu_torch.cli.main vis --work-dir vis_out \
@@ -67,7 +68,9 @@ data-parallel with one process per card (`train/distributed.py`: the
 dir; --remat recomputes the scan-stacked blocks in the backward (full, the
 default, as the reference's `torch.utils.checkpoint`), none, or saves what
 a named policy says (`nn/rematutil.py`). `parity` exits 1 on a failed
-boundary. Still refused, naming its ROADMAP item: `export --native` (25).
+boundary. `export --native` writes the bundle that the C++ daemon
+`veon_serve_host` and runner `veon_aoti_runner` serve with no Python
+(`ops/native.py` `build_host` builds them; `utils/export.py`).
 
 --cam-shards S shards the six cameras over S processes
 (`serve/camshard.py`), started as the data-parallel ones are (torchrun, or
@@ -134,7 +137,9 @@ from ..train.distributed import broadcast_state, initialize as dist_init, proces
 from ..train.distributed import shutdown as dist_shutdown
 from ..train.step import AdamW, create_train_state, make_train_step, stage2_trainable
 from ..utils import bench_model
-from ..utils.export import _build_streaming, export_flagship, export_streaming, load_program
+from ..utils.export import (_build_streaming, export_flagship, export_flagship_native,
+                            export_streaming, export_streaming_native, export_tiny_native,
+                            load_program)
 from ..utils.logging import MetricWriter
 from ..utils.params import param_table
 
@@ -763,15 +768,18 @@ def cmd_export(args):
     bf16 (the flagship's, `export_flagship`) to <work-dir>/veon_infer.pt2,
     or with --num-temporal > 1 the streaming step in the preset's dtype to
     <work-dir>/veon_infer_t<N>.pt2, with --raw-uint8 taking raw uint8
-    frames. Returns the path."""
+    frames. With --native, the bundle of `utils/export.py` `export_native_bundle` for
+    the C++ daemon and runner, to <work-dir>/veon_native[_t<N>]/: the
+    streaming step of any preset with --num-temporal > 1, else the veon_b
+    flagship (--split-output K chunks its grid) or the veon_tiny_test smoke
+    bundle, as JAX's rules. Returns the path."""
     if args.raw_uint8 and args.num_temporal <= 1:
         raise SystemExit("export --raw-uint8 needs --num-temporal > 1 (the streaming step "
                          "exporter); the single-frame flagship artifact is the entry() graph, "
                          "which is frozen at normalized-float inputs")
-    if args.native:
-        raise NotImplementedError("export --native (an AOTInductor package with a C++ runner "
-                                  "over libtorch) is not ported yet: ROADMAP Queue 1 item 25")
     t0 = time.perf_counter()
+    if args.native:
+        return _export_native(args, t0)
     if args.num_temporal > 1:
         path = os.path.join(args.work_dir, f"veon_infer_t{args.num_temporal}.pt2")
         export_streaming(path, preset=args.preset, num_temporal=args.num_temporal,
@@ -782,6 +790,27 @@ def cmd_export(args):
     print(f"exported: {path} ({os.path.getsize(path)} bytes, "
           f"{time.perf_counter() - t0:.3f} s)")
     return path
+
+
+def _export_native(args, t0):
+    outdir = os.path.join(args.work_dir, f"veon_native_t{args.num_temporal}"
+                          if args.num_temporal > 1 else "veon_native")
+    if args.num_temporal > 1:
+        export_streaming_native(outdir, preset=args.preset, num_temporal=args.num_temporal,
+                                raw_uint8=args.raw_uint8, device=args.device)
+    elif args.preset == "veon_tiny_test":
+        export_tiny_native(outdir, split_output=args.split_output, device=args.device)
+    elif args.preset == "veon_b":
+        export_flagship_native(outdir, split_output=args.split_output, device=args.device)
+    else:
+        # the single-frame bundle is the flagship graph: shipping veon_b under
+        # another preset's name would serve a daemon that refuses its shapes
+        raise SystemExit("export --native without --num-temporal exports the veon_b flagship "
+                         "graph only (or veon_tiny_test for the daemon's smoke bundle); use "
+                         "--num-temporal > 1 for a streaming bundle of any preset")
+    print(f"exported native bundle: {outdir} ({time.perf_counter() - t0:.3f} s; see "
+          f"manifest.json serve_cmd)")
+    return outdir
 
 
 def cmd_parity(args):
@@ -983,7 +1012,11 @@ OPTIONS = (
      ("benchmark",)),
     (("--artifact",), dict(default=None, help="time an exported .pt2 program (export's "
                            "output) instead of the live model"), ("benchmark",)),
-    (("--native",), dict(action="store_true", help="not ported (ROADMAP Queue 1 item 25)"),
+    (("--native",), dict(action="store_true", help="write the native bundle (an AOTInductor "
+                         "package, bind/*.npy, manifest.json) that veon_serve_host and "
+                         "veon_aoti_runner serve with no Python"), ("export",)),
+    (("--split-output",), dict(type=int, default=1, help="export --native at F=1: return the "
+                               "class grid as K chunks along X (manifest split_concat)"),
      ("export",)),
 )
 
