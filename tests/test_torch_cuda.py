@@ -399,3 +399,38 @@ def test_cpp_ops_bit_equal_python_ops(card, tmp_path, dtype):
     for g, w in zip(got["out"], want):
         assert g.dtype == w.dtype and torch.equal(g, w.cpu())
     assert got["counts"] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("num_temporal", [1, 2])
+def test_traced_request_on_card(card, num_temporal):
+    """A tiny served request traced on the card (`utils/tracing.py`): every
+    span holds device ms, the host's waits are counted (at least one per
+    counted upload and the readback, each a pageable copy), kernel #1
+    launched once, and the sync debug mode is back as it was."""
+    from veon_tpu_torch.configs import presets
+    from veon_tpu_torch.data.transforms import depth_tower_size
+    from veon_tpu_torch.entry import serve_entry
+    from veon_tpu_torch.utils import tracing
+
+    cfg = presets.veon_tiny_test(num_temporal=num_temporal)
+    handler, *_ = serve_entry(cfg, device=card, raw_uint8=True)
+    rng = np.random.default_rng(0)
+    N, (H, W) = cfg.data.num_cams, cfg.data.input_size
+    dh, dw = depth_tower_size(cfg.data)
+    req = {"imgs": rng.integers(0, 256, (1, 1, N, H, W, 3), dtype=np.uint8),
+           "depth_imgs": rng.integers(0, 256, (1, 1, N, dh, dw, 3), dtype=np.uint8)}
+    if num_temporal > 1:
+        req["lidarego2global"] = np.eye(4, dtype=np.float32)[None]
+    tracing.clear()
+    tracing.enable()
+    try:
+        handler(**req)
+    finally:
+        tracing.disable()
+    (rec,) = tracing.requests()
+    tracing.clear()
+    assert all(s["device_ms"] is not None and s["device_ms"] >= 0 for s in rec["spans"])
+    c = rec["counters"]
+    assert c["host_syncs"] >= c["h2d_copies"] + 1, c
+    assert rec["launches"]["bev_pool_pooled"] == 1
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -1,7 +1,8 @@
 """The port's profiling tools (`veon_tpu_torch/utils/profiling.py`) on the
 CPU: `flops` of a Dense against its analytic count, `fps_harness`'s
-protocol, `trace` writing a Chrome trace that parses, and the lift
-microbench's inputs at the JAX microbench's shapes."""
+protocol, `trace` writing a Chrome trace that parses and holds a worker
+thread's spans, and the lift microbench's inputs at the JAX microbench's
+shapes."""
 
 import json
 import os
@@ -47,6 +48,35 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+
+
+def test_trace_records_every_thread(tmp_path):
+    """A span of `utils/tracing.py` opened on a worker thread, and the ops
+    under it, are in the written trace: the serve worker computes on a
+    thread of its own."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from veon_tpu_torch.utils import tracing
+
+    def work():
+        with tracing.span("model.lift"):
+            return torch.ones(16, 16) @ torch.ones(16, 16)
+
+    worker = ThreadPoolExecutor(max_workers=1)
+    try:
+        worker.submit(torch.ones, 1).result()  # the thread exists before the trace
+        tracing.enable()
+        with profiling.trace(str(tmp_path), device="cpu") as path:
+            worker.submit(work).result()
+    finally:
+        tracing.disable()
+        tracing.clear()
+        worker.shutdown()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = [e for e in events if e.get("name") == "model.lift"]
+    assert len(span) == 1
+    assert any(e.get("name") == "aten::mm" and e.get("tid") == span[0]["tid"] for e in events)
 
 
 def test_entry_points_default_to_the_card():

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..configs.base import DataConfig
+from ..utils import tracing
 
 _CLIPSAN_MEAN = np.array([122.7709, 116.7460, 104.0937], np.float32)
 _CLIPSAN_STD = np.array([68.5005, 66.6322, 70.3232], np.float32)
@@ -82,9 +83,9 @@ def normalize_in_graph(img: torch.Tensor, method: str) -> torch.Tensor:
     if div255:
         # a divisor on the device: CUDA multiplies by the reciprocal of a
         # Python scalar, one rounding away from the host's division
-        x = x / torch.tensor(255.0, device=x.device)
-    mean = torch.as_tensor(mean, device=x.device)
-    std = torch.as_tensor(std, device=x.device)
+        x = x / tracing.uploaded(torch.tensor(255.0, device=x.device))
+    mean = tracing.uploaded(torch.as_tensor(mean, device=x.device))
+    std = tracing.uploaded(torch.as_tensor(std, device=x.device))
     return (x - mean) / std
 
 

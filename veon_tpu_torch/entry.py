@@ -79,6 +79,7 @@ from .nn.vit import CLIPTextEncoder
 from .serve.camshard import make_camera_sharded_forward, share_request
 from .serve.streaming import TemporalSession
 from .train.step import AdamW, TrainState, create_train_state, make_train_step
+from .utils import tracing
 
 
 class ServingForward(nn.Module):
@@ -134,14 +135,17 @@ class FrameServer:
     def infer(self, imgs, depth_imgs, text_embed=None) -> Dict[str, torch.Tensor]:
         """The served response: `pred`, the uint8 class grid, and with
         text_embed (C,) the free-text `retrieval` map (B, X, Y, Z)."""
-        if self.normalize is not None:
-            imgs = normalize_in_graph(imgs, self.normalize[0])
-            depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
-        out = self.outputs(imgs, depth_imgs)
-        resp = {"pred": fused_classes(out, self.membership).to(torch.uint8)}
-        if text_embed is not None:
-            resp["retrieval"] = retrieval_map(out["feat_occ"], text_embed)
-        return resp
+        with tracing.span("session.infer"):
+            if self.normalize is not None:
+                with tracing.span("session.normalize"):
+                    imgs = normalize_in_graph(imgs, self.normalize[0])
+                    depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
+            out = self.outputs(imgs, depth_imgs)
+            with tracing.span("session.merge"):
+                resp = {"pred": fused_classes(out, self.membership).to(torch.uint8)}
+            if text_embed is not None:
+                resp["retrieval"] = retrieval_map(out["feat_occ"], text_embed)
+            return resp
 
 
 def _no_tf32(dev):
@@ -155,13 +159,14 @@ def build_model(cfg, dev, seed, variables, remat: RematSpec = False) -> VeonMode
     """The model on `dev` with weights from `variables` (a whole JAX
     variables tree as numpy arrays, strict on both sides) when given, else
     from a seeded random init; `remat` as `nn/rematutil.py` reads it."""
-    _no_tf32(dev)
-    model = VeonModel(cfg, device=dev, remat=remat)
-    if variables is not None:
-        load_from_jax(model, variables)
-    else:
-        init_random_(model, torch.Generator(device=dev).manual_seed(seed))
-    return model
+    with tracing.setup_span("setup.build_model"):
+        _no_tf32(dev)
+        model = VeonModel(cfg, device=dev, remat=remat)
+        if variables is not None:
+            load_from_jax(model, variables)
+        else:
+            init_random_(model, torch.Generator(device=dev).manual_seed(seed))
+        return model
 
 
 def _ov_weight(cfg: VeonConfig, dev, seed: int = 1):
@@ -338,6 +343,9 @@ class ServeHandler:
     thread, so a request computed on a new thread builds them again (on an
     H100 a connection's first request took 0.7-1.8 s against ~0.15 s
     steady). Grad mode is per thread too: the worker runs under no_grad.
+    Each call is one request of `utils/tracing.py` when tracing is on or a
+    `torch.profiler` records: `serve.request` on the caller's thread, the
+    check, upload, compute and readback spans on the worker under it.
 
     With a `cam_group` (the server or session sharded over it) every rank
     of the group holds a handler: the group's first rank (`leader`) is
@@ -362,9 +370,9 @@ class ServeHandler:
         self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="veon-serve")
 
     def _tensor(self, x):
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return tracing.uploaded(x.to(self.device))
 
     def _check_img_dtype(self, req):
         """Refuse frames of the other mode's dtype: normalized fp32 frames
@@ -392,14 +400,26 @@ class ServeHandler:
         if not self.leader:
             raise RuntimeError("only the cam group's first rank takes requests; the others "
                                "follow()")
-        return self._worker.submit(self._lead, req).result()
+        return self._run(self._lead, req)
+
+    def _run(self, fn, req):
+        """fn(req) on the worker, one request of `utils/tracing.py` when
+        tracing is on or a profiler records: `serve.request` on this
+        thread, the worker's spans under it."""
+        with tracing.request() as root:
+            return self._worker.submit(self._attached, fn, req, root).result()
+
+    @staticmethod
+    def _attached(fn, req, root):
+        with tracing.attach(root):
+            return fn(req)
 
     def warm(self, **req) -> Dict[str, np.ndarray]:
         """Compute the warm-up frame, which every rank of a cam group holds,
         without broadcasting it; its frames' shapes are the ones every
         request must have."""
         self.shapes = {k: tuple(req[k].shape) for k in _FRAME_KEYS if k in req}
-        return self._worker.submit(self._compute, req).result()
+        return self._run(self._compute, req)
 
     def follow(self) -> None:
         """A cam rank after the first: compute each request the first rank
@@ -409,7 +429,7 @@ class ServeHandler:
             if req is None:
                 return
             try:
-                self._worker.submit(self._compute, req).result()
+                self._run(self._compute, req)
             except Exception as e:  # the first rank reports it; keep following
                 print(f"cam rank {self.cam_group.index}: request failed: "
                       f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
@@ -420,7 +440,8 @@ class ServeHandler:
             self._worker.submit(share_request, None, self.cam_group, self.device).result()
 
     def _lead(self, req):
-        self._check(req)
+        with tracing.span("serve.check"):
+            self._check(req)
         if self.cam_group is not None:
             req = share_request(req, self.cam_group, self.device)
         return self._compute(req)
@@ -444,16 +465,19 @@ class ServeHandler:
             self.session.reset()
             return {"ok": np.int32(1)}
         te = self._embed(req)
-        imgs, depth_imgs = self._tensor(req["imgs"]), self._tensor(req["depth_imgs"])
-        if self.session is not None:
-            out = self.session.infer(imgs, depth_imgs,
-                                     {"lidarego2global": self._tensor(req["lidarego2global"])},
-                                     text_embed=te)
-        else:
-            out = self.server.infer(imgs, depth_imgs, text_embed=te)
-        resp = {"pred": out["pred"].cpu().numpy()}
-        if te is not None:
-            resp["retrieval"] = out["retrieval"].cpu().numpy()
+        with tracing.span("serve.upload"):
+            imgs, depth_imgs = self._tensor(req["imgs"]), self._tensor(req["depth_imgs"])
+            if self.session is not None:
+                metas = {"lidarego2global": self._tensor(req["lidarego2global"])}
+        with tracing.span("serve.compute"):
+            if self.session is not None:
+                out = self.session.infer(imgs, depth_imgs, metas, text_embed=te)
+            else:
+                out = self.server.infer(imgs, depth_imgs, text_embed=te)
+        with tracing.span("serve.readback"):
+            resp = {"pred": tracing.read_back(out["pred"].cpu()).numpy()}
+            if te is not None:
+                resp["retrieval"] = tracing.read_back(out["retrieval"].cpu()).numpy()
         return resp
 
 
@@ -473,46 +497,51 @@ def serve_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
     connection at a time (exclusive). `cam_group` shards the cameras over
     its ranks, each of which calls this (`ServeHandler` says who serves):
     the rig's presort is then each shard's (`prepare_camshard_metas`)."""
-    dev = resolve_device(device)
-    if cfg is None:
-        cfg = presets.veon_b(compute_dtype="bfloat16")
-    model, tower, ovw, membership = serving_model(cfg, dev, seed, variables, text_tower,
-                                                  bg_embed, logit_scale, bpe_path, model)
-    imgs, depth_imgs, metas = example_batch_full(cfg, device=dev)
-    no_text = text_mod.ClipTokenizer().tokenize([""])  # warms the text path too
-    norm = ("clipsan", cfg.data.depth_norm_method) if raw_uint8 else None
-    if raw_uint8:
-        imgs = torch.full(imgs.shape, 127, dtype=torch.uint8, device=dev)
-        depth_imgs = torch.full(depth_imgs.shape, 127, dtype=torch.uint8, device=dev)
+    with tracing.setup_span("setup.serve_entry"):
+        dev = resolve_device(device)
+        if cfg is None:
+            cfg = presets.veon_b(compute_dtype="bfloat16")
+        with tracing.setup_span("setup.serving_model"):
+            model, tower, ovw, membership = serving_model(cfg, dev, seed, variables, text_tower,
+                                                          bg_embed, logit_scale, bpe_path, model)
+        imgs, depth_imgs, metas = example_batch_full(cfg, device=dev)
+        no_text = text_mod.ClipTokenizer().tokenize([""])  # warms the text path too
+        norm = ("clipsan", cfg.data.depth_norm_method) if raw_uint8 else None
+        if raw_uint8:
+            imgs = torch.full(imgs.shape, 127, dtype=torch.uint8, device=dev)
+            depth_imgs = torch.full(depth_imgs.shape, 127, dtype=torch.uint8, device=dev)
 
-    def presorted(rig):
-        if cam_group is None:
-            return _with_presort(model, rig)
-        return prepare_camshard_metas(cfg, rig, cam_group.size, presort=True)
+        def presorted(rig):
+            with tracing.setup_span("setup.presort"):
+                if cam_group is None:
+                    return _with_presort(model, rig)
+                return prepare_camshard_metas(cfg, rig, cam_group.size, presort=True)
 
-    if cfg.num_temporal > 1:
-        rig = {k: metas[k][:, 0:1] for k in ("sensor2egos", "ego2globals", "intrins",
-                                             "post_rots", "post_trans")}
-        rig["bda"] = metas["bda"]
-        session = TemporalSession(model, ovw, membership, rig_metas=presorted(rig),
-                                  normalize=norm, cam_group=cam_group)
-        handler = ServeHandler(cfg, tower, session=session, raw_uint8=raw_uint8,
-                               cam_group=cam_group)
-        imgs, depth_imgs = imgs[:, 0:1], depth_imgs[:, 0:1]
-        handler.warm(imgs=imgs, depth_imgs=depth_imgs, lidarego2global=metas["lidarego2global"],
-                     text_tokens=no_text)
-        session.reset()
-        required = ()  # reset frames carry no frames; the handler checks the keys
-        expect = (f"expected per-frame imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "
-                  f"{tuple(depth_imgs.shape)}, lidarego2global (1, 4, 4); optional "
-                  f"text_embed/text_tokens for retrieval")
-    else:
-        server = FrameServer(model, presorted(metas), ovw, membership, normalize=norm,
-                             cam_group=cam_group)
-        handler = ServeHandler(cfg, tower, server=server, raw_uint8=raw_uint8,
-                               cam_group=cam_group)
-        handler.warm(imgs=imgs, depth_imgs=depth_imgs, text_tokens=no_text)
-        required = ("imgs", "depth_imgs")
-        expect = (f"expected imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "
-                  f"{tuple(depth_imgs.shape)}; optional text_embed/text_tokens for retrieval")
-    return handler, required, expect, cfg.num_temporal > 1
+        if cfg.num_temporal > 1:
+            rig = {k: metas[k][:, 0:1] for k in ("sensor2egos", "ego2globals", "intrins",
+                                                 "post_rots", "post_trans")}
+            rig["bda"] = metas["bda"]
+            session = TemporalSession(model, ovw, membership, rig_metas=presorted(rig),
+                                      normalize=norm, cam_group=cam_group)
+            handler = ServeHandler(cfg, tower, session=session, raw_uint8=raw_uint8,
+                                   cam_group=cam_group)
+            imgs, depth_imgs = imgs[:, 0:1], depth_imgs[:, 0:1]
+            with tracing.setup_span("setup.warm"):
+                handler.warm(imgs=imgs, depth_imgs=depth_imgs,
+                             lidarego2global=metas["lidarego2global"], text_tokens=no_text)
+            session.reset()
+            required = ()  # reset frames carry no frames; the handler checks the keys
+            expect = (f"expected per-frame imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "
+                      f"{tuple(depth_imgs.shape)}, lidarego2global (1, 4, 4); optional "
+                      f"text_embed/text_tokens for retrieval")
+        else:
+            server = FrameServer(model, presorted(metas), ovw, membership, normalize=norm,
+                                 cam_group=cam_group)
+            handler = ServeHandler(cfg, tower, server=server, raw_uint8=raw_uint8,
+                                   cam_group=cam_group)
+            with tracing.setup_span("setup.warm"):
+                handler.warm(imgs=imgs, depth_imgs=depth_imgs, text_tokens=no_text)
+            required = ("imgs", "depth_imgs")
+            expect = (f"expected imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "
+                      f"{tuple(depth_imgs.shape)}; optional text_embed/text_tokens for retrieval")
+        return handler, required, expect, cfg.num_temporal > 1

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..configs.base import GridConfig
+from ..utils import tracing
 
 
 def create_frustum(grid: GridConfig, input_size: Tuple[int, int],
@@ -50,7 +51,8 @@ def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _inv(m: torch.Tensor) -> torch.Tensor:
     """fp32 inverse of (..., n, n) computed on the host (LU, as the JAX
     reference's jnp.linalg.inv on the CPU)."""
-    return torch.linalg.inv(m.detach().cpu().float()).to(m.device)
+    inv = torch.linalg.inv(tracing.read_back(m.detach().cpu()).float())
+    return tracing.uploaded(inv.to(m.device))
 
 
 def _expand(m: torch.Tensor, extra: int) -> torch.Tensor:

@@ -63,6 +63,7 @@ from ..nn.vit import CLIPRecHead, CLIPVisualExtractor
 from ..nn.zoedepth import ZoeDepthNK
 from ..ops.grid_sample import grid_sample_3d
 from ..ops.resize import resize_bilinear, resize_trilinear
+from ..utils import tracing
 
 # the per-camera (B, N, ...) output leaves, gathered over the cam group by
 # camera-sharded serving and before the sharded step's loss; the voxel
@@ -135,10 +136,11 @@ class VeonModel(nn.Module):
         branch's) -> (B, F, N, H/2, W/2) metric, resized bilinear
         align_corners=True."""
         B, F, N = depth_imgs.shape[:3]
-        d = self.depth(depth_imgs.reshape((-1,) + depth_imgs.shape[3:]))
-        h2, w2 = self.cfg.data.input_size[0] // 2, self.cfg.data.input_size[1] // 2
-        if tuple(d.shape[-2:]) != (h2, w2):
-            d = resize_bilinear(d[..., None], (h2, w2), align_corners=True)[..., 0]
+        with tracing.span("model.depth"):
+            d = self.depth(depth_imgs.reshape((-1,) + depth_imgs.shape[3:]))
+            h2, w2 = self.cfg.data.input_size[0] // 2, self.cfg.data.input_size[1] // 2
+            if tuple(d.shape[-2:]) != (h2, w2):
+                d = resize_bilinear(d[..., None], (h2, w2), align_corners=True)[..., 0]
         return d.reshape((B, F, N) + d.shape[1:])
 
     def full_forward(self, imgs, depth_imgs, metas, ov_weight, train: bool = False
@@ -179,8 +181,9 @@ class VeonModel(nn.Module):
                 vox, _ = self._early_vox(frame_flat(flat, f),
                                          {k: frame_flat(v, f) for k, v in feats.items()},
                                          depth[:, f], lift_args(f))
-                prevs.append(self.align_to_prev(vox, metas["lidarego2global"],
-                                                metas["prev_lidarego2global"][:, f - 1]))
+                with tracing.span("model.warp"):
+                    prevs.append(self.align_to_prev(vox, metas["lidarego2global"],
+                                                    metas["prev_lidarego2global"][:, f - 1]))
         if F > 1:
             flat, feats = frame_flat(flat, 0), {k: frame_flat(v, 0) for k, v in feats.items()}
         return self._forward_current(flat, feats, depth[:, 0], ov_weight, B, N, lift_args(0),
@@ -194,24 +197,31 @@ class VeonModel(nn.Module):
         previous frames' voxels already warped into this frame's ego."""
         c = self.cfg
         with _frozen(train):
-            mask_preds, attn_bias, _ = self.side_adapter(flat0, feats)
-            mask_embs = self.rec_head(feats, attn_bias, normalize=True)
+            with tracing.span("model.side_adapter"):
+                mask_preds, attn_bias, _ = self.side_adapter(flat0, feats)
+            with tracing.span("model.rec_head"):
+                mask_embs = self.rec_head(feats, attn_bias, normalize=True)
         vox, feats_0 = self._early_vox(flat0, feats, depth0, lift_args, presorted)
-        occ = self.alignnet(vox, list(occ_feat_prevs), train=train)
-        nx, ny, nz = c.grid.size
-        feat_occ = resize_trilinear(occ["feat_occ"], (nz, ny, nx))
-        bin_occ = resize_trilinear(occ["bin_occ"], (nz, ny, nx))
-        sem_occ_raw = feat_occ @ ov_weight.to(feat_occ.dtype).T
-        mask_logits = mask_embs @ ov_weight.to(mask_embs.dtype).T
-        sem_seg_ds, sem_embed_ds = self.semantic_inference_2d(mask_logits, mask_embs, mask_preds)
-        proj = feats_0["clip_feat_proj"]
-        out = {
-            "sem_seg_ds": sem_seg_ds.reshape((B, N) + sem_seg_ds.shape[1:]),
-            "sem_embed_ds": sem_embed_ds.reshape((B, N) + sem_embed_ds.shape[1:]),
-            "clip_feat": proj.reshape((B, N) + proj.shape[1:]),
-            "bin_occ": bin_occ, "feat_occ": feat_occ, "sem_occ_raw": sem_occ_raw,
-        }
-        out = {k: v.float() for k, v in out.items()}
+        with tracing.span("model.alignnet"):
+            occ = self.alignnet(vox, list(occ_feat_prevs), train=train)
+        # the outputs: voxels up to the full grid, the vocabulary's logits,
+        # the 2D semantic maps, fp32
+        with tracing.span("model.output"):
+            nx, ny, nz = c.grid.size
+            feat_occ = resize_trilinear(occ["feat_occ"], (nz, ny, nx))
+            bin_occ = resize_trilinear(occ["bin_occ"], (nz, ny, nx))
+            sem_occ_raw = feat_occ @ ov_weight.to(feat_occ.dtype).T
+            mask_logits = mask_embs @ ov_weight.to(mask_embs.dtype).T
+            sem_seg_ds, sem_embed_ds = self.semantic_inference_2d(mask_logits, mask_embs,
+                                                                  mask_preds)
+            proj = feats_0["clip_feat_proj"]
+            out = {
+                "sem_seg_ds": sem_seg_ds.reshape((B, N) + sem_seg_ds.shape[1:]),
+                "sem_embed_ds": sem_embed_ds.reshape((B, N) + sem_embed_ds.shape[1:]),
+                "clip_feat": proj.reshape((B, N) + proj.shape[1:]),
+                "bin_occ": bin_occ, "feat_occ": feat_occ, "sem_occ_raw": sem_occ_raw,
+            }
+            out = {k: v.float() for k, v in out.items()}
         if return_early_vox:
             # compute dtype: it is the next call's cached previous frame
             out["early_vox"] = vox.detach()
@@ -222,19 +232,22 @@ class VeonModel(nn.Module):
         flat_imgs (B*N, H, W, 3); depth_f (B, N, H/2, W/2)."""
         c = self.cfg
         B, N = depth_f.shape[:2]
-        attns, supp = self.hsa(flat_imgs, feats)
-        feats = self.rec_head.update_remaining(feats, attns)
-        lift_hw = (c.data.input_size[0] // c.lss_downsample,
-                   c.data.input_size[1] // c.lss_downsample)
-        fused = self.lift_fusion(supp, feats[str(c.san.clip_layers)], lift_hw)
-        fused = fused.reshape((B, N) + fused.shape[1:])
-        d_ds = min_pool_depth(depth_f, 8)
-        if presorted is not None:
-            vox = self.lift.lift_presorted(fused, two_hot_depth(d_ds, c.grid), presorted)
-        elif c.lss_banded:
-            vox = self.lift.lift_from_metric(fused, d_ds, *lift_args)
-        else:
-            vox = self.lift(fused, two_hot_depth(d_ds, c.grid), *lift_args)
+        with tracing.span("model.hsa"):
+            attns, supp = self.hsa(flat_imgs, feats)
+        with tracing.span("model.rec_rerun"):
+            feats = self.rec_head.update_remaining(feats, attns)
+        with tracing.span("model.lift"):
+            lift_hw = (c.data.input_size[0] // c.lss_downsample,
+                       c.data.input_size[1] // c.lss_downsample)
+            fused = self.lift_fusion(supp, feats[str(c.san.clip_layers)], lift_hw)
+            fused = fused.reshape((B, N) + fused.shape[1:])
+            d_ds = min_pool_depth(depth_f, 8)
+            if presorted is not None:
+                vox = self.lift.lift_presorted(fused, two_hot_depth(d_ds, c.grid), presorted)
+            elif c.lss_banded:
+                vox = self.lift.lift_from_metric(fused, d_ds, *lift_args)
+            else:
+                vox = self.lift(fused, two_hot_depth(d_ds, c.grid), *lift_args)
         return vox, feats
 
     def forward_early(self, imgs, depth, metas):
@@ -267,7 +280,7 @@ class VeonModel(nn.Module):
         (B, F-1, 4, 4). Equals the batched forward on the equivalent
         (B, F, N, ...) batch, and returns the current frame's `early_vox`
         for the next call's cache."""
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("model.warp"):
             prevs = [self.align_to_prev(prev_vox[:, t], metas["lidarego2global"],
                                         prev_lidarego2global[:, t])
                      for t in range(prev_vox.shape[1])]
@@ -280,7 +293,9 @@ class VeonModel(nn.Module):
     def _clip_trunk(self, flat):
         """CLIP trunk features of flat (B*N, H, W, 3) camera images, at half
         resolution."""
-        return self.clip_visual(resize_bilinear(flat, (flat.shape[1] // 2, flat.shape[2] // 2)))
+        with tracing.span("model.clip"):
+            return self.clip_visual(resize_bilinear(flat, (flat.shape[1] // 2,
+                                                           flat.shape[2] // 2)))
 
     @staticmethod
     def _lift_args1(metas, B, N):

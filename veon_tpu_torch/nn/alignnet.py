@@ -15,6 +15,7 @@ from torch import nn
 
 from ..configs.base import PropagationConfig
 from ..ops.grid_sample import grid_sample_3d
+from ..utils import tracing
 from .layers import BatchNorm, CatFusionLift, Conv3d
 from .rematutil import RematSpec, remat_wrap
 from .vit import stack
@@ -144,7 +145,7 @@ class TemporalDeformable(nn.Module):
         zz, yy, xx = torch.meshgrid(_linspace_pm1(D, dev), _linspace_pm1(H, dev),
                                     _linspace_pm1(W, dev), indexing="ij")
         base = torch.stack([zz, yy, xx], -1)[None, :, :, :, None, None, :]  # (z, y, x)
-        norm = torch.tensor([D, H, W], dtype=off.dtype, device=dev)
+        norm = tracing.uploaded(torch.tensor([D, H, W], dtype=off.dtype, device=dev))
         grid_zyx = (base + off / norm).clamp(-1, 1)  # fp32
 
         q = query.reshape(B, D, H, W, nh, hd)
@@ -152,7 +153,8 @@ class TemporalDeformable(nn.Module):
         if self.use_stencil:
             # per-sample offset in cells after the clip (align_corners:
             # cells = (g + 1) / 2 * (size - 1))
-            sizes = torch.tensor([D - 1, H - 1, W - 1], dtype=torch.float32, device=dev) / 2.0
+            sizes = tracing.uploaded(
+                torch.tensor([D - 1, H - 1, W - 1], dtype=torch.float32, device=dev)) / 2.0
             delta = (grid_zyx - base) * sizes
             qs = q * hd ** -0.5
             # a tap's hat weight is a product of one factor per axis, each
@@ -238,7 +240,8 @@ class AlignNet3D(nn.Module):
     def forward(self, x, occ_feat_prevs: Optional[List[torch.Tensor]] = None,
                 train: bool = False) -> Dict[str, torch.Tensor]:
         if occ_feat_prevs:
-            x = self.temporal_fusion(x, occ_feat_prevs, train)
+            with tracing.span("model.temporal_fusion"):
+                x = self.temporal_fusion(x, occ_feat_prevs, train)
         for body in self.res3d:
             x = remat_wrap(body["block"], self.remat)(x, train)
         return {"bin_occ": self.occupancy_pred(x, train), "feat_occ": self.feat_pred(x, train)}

@@ -16,6 +16,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 NUSCENES_BRIEF: List[Tuple[str, List[str]]] = [
     ("others", [
         "debris", "animal", "personal mobility", "skateboard", "segway",
@@ -258,7 +260,7 @@ def merge_classes_max(x: torch.Tensor, membership, axis: int) -> torch.Tensor:
     x = x.movedim(axis, -1)
     # one gather + max per group: the masked (..., G, P) broadcast would
     # materialize G x the input (3 GB at the flagship's 640k voxels)
-    groups = [torch.as_tensor(np.flatnonzero(row), device=x.device)
+    groups = [tracing.uploaded(torch.as_tensor(np.flatnonzero(row), device=x.device))
               for row in np.asarray(membership)]
     out = torch.stack([x.index_select(-1, g).amax(-1) for g in groups], -1)
     return out.movedim(-1, axis)

@@ -30,6 +30,7 @@ from ..data.transforms import normalize_in_graph
 from ..model.veon import VeonModel, fusion_rule, retrieval_map
 from ..nn import text as text_mod
 from ..model.camshard import gather_outputs, local_inputs, prepare_camshard_metas
+from ..utils import tracing
 
 
 class StreamingStep(nn.Module):
@@ -54,15 +55,17 @@ class StreamingStep(nn.Module):
 
     def forward(self, imgs, depth_imgs, metas, ov_weight, prev_vox, prev_l2g, text_embed):
         if self.normalize is not None:
-            imgs = normalize_in_graph(imgs, self.normalize[0])
-            if self.estimate_depth:
-                depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
+            with tracing.span("session.normalize"):
+                imgs = normalize_in_graph(imgs, self.normalize[0])
+                if self.estimate_depth:
+                    depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
         run = (self.model.full_forward_streaming if self.estimate_depth
                else self.model.forward_streaming)
         out = run(imgs, depth_imgs, metas, ov_weight, prev_vox, prev_l2g)
         if self.membership is not None:
-            merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1)
-            out["pred"] = fusion_rule(merged, out["bin_occ"]).to(torch.uint8)
+            with tracing.span("session.merge"):
+                merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1)
+                out["pred"] = fusion_rule(merged, out["bin_occ"]).to(torch.uint8)
         out["retrieval"] = retrieval_map(out["feat_occ"], text_embed)
         return out
 
@@ -115,27 +118,29 @@ class TemporalSession:
         free-text `retrieval` map. Returns the model's outputs, `pred` (the
         uint8 (1, X, Y, Z) class grid, when the session has a membership
         matrix) and `retrieval`."""
-        m = dict(self.rig_metas)
-        m.update(metas)
-        te = self._zero_embed if text_embed is None else torch.as_tensor(
-            text_embed, dtype=torch.float32, device=self._zero_embed.device)
-        cg = self.cam_group
-        if cg is not None:
-            if "sensor2keyegos" not in m:
-                keep = m.pop("lift_sorted", None)
-                m = prepare_camshard_metas(self.model.cfg, m, cg.size)
-                if keep is not None:
-                    m["lift_sorted"] = keep
-            imgs, depth_imgs, m = local_inputs(imgs, depth_imgs, m, cg)
-        out = self.step(imgs, depth_imgs, m, self.ov_weight, self._vox, self._l2g, te)
-        if cg is not None:
-            out = gather_outputs(out, cg)
-        early = out.pop("early_vox")
-        l2g = m["lidarego2global"].to(torch.float32)
-        self._vox = torch.cat([early[:, None].to(self._vox.dtype), self._vox[:, :-1]], 1)
-        self._l2g = torch.cat([l2g[:, None], self._l2g[:, :-1]], 1)
-        self.calls += 1
-        return out
+        with tracing.span("session.infer"):
+            m = dict(self.rig_metas)
+            m.update(metas)
+            te = self._zero_embed if text_embed is None else torch.as_tensor(
+                text_embed, dtype=torch.float32, device=self._zero_embed.device)
+            cg = self.cam_group
+            if cg is not None:
+                if "sensor2keyegos" not in m:
+                    keep = m.pop("lift_sorted", None)
+                    m = prepare_camshard_metas(self.model.cfg, m, cg.size)
+                    if keep is not None:
+                        m["lift_sorted"] = keep
+                imgs, depth_imgs, m = local_inputs(imgs, depth_imgs, m, cg)
+            out = self.step(imgs, depth_imgs, m, self.ov_weight, self._vox, self._l2g, te)
+            if cg is not None:
+                out = gather_outputs(out, cg)
+            with tracing.span("session.cache"):
+                early = out.pop("early_vox")
+                l2g = m["lidarego2global"].to(torch.float32)
+                self._vox = torch.cat([early[:, None].to(self._vox.dtype), self._vox[:, :-1]], 1)
+                self._l2g = torch.cat([l2g[:, None], self._l2g[:, :-1]], 1)
+            self.calls += 1
+            return out
 
     def reset(self) -> None:
         """Zero the cache (a scene cut or a new sequence)."""

@@ -23,16 +23,20 @@ from .. import resolve_device
 
 @contextlib.contextmanager
 def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "veon_trace"), device="cuda"):
-    """Profile the body with `torch.profiler` (host ops, and the card's
-    kernels on a CUDA device) and write its Chrome trace to
+    """Profile the body with `torch.profiler` (host ops of every thread,
+    the serve worker's spans of `utils/tracing.py` among them, and the
+    card's kernels on a CUDA device) and write its Chrome trace to
     `<log_dir>/trace.json` (chrome://tracing, Perfetto). Yields the path."""
+    from torch._C._profiler import _ExperimentalConfig
+
     dev = resolve_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities, experimental_config=_ExperimentalConfig(
+            profile_all_threads=True)) as prof:
         yield path
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
