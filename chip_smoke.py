@@ -16,7 +16,10 @@ Phases; any failed check raises, so the exit code is non-zero:
      (with that backward as a whole); #3 (two streams) on the K-band plus
      the far-depth spray; #4 (fused LayerNorm -> Dense) at the HSA qkv, HSA
      MLP and SAN qkv shapes, in turns with the library pair, with each
-     time's share of the bound; fp32 and bf16;
+     time's share of the bound; the deformable stencil (the port's own
+     kernel, `csrc/deform_stencil.cu`) at VEON-B's fusion shape, every
+     tap's q.k and the output against the plain version, with L2 flushed
+     and warm, in turns with the plain chain; fp32 and bf16;
   3. the stage-2 train step at a small size on the card against the same
      model on the CPU (plain versions), same weights and batch;
   4. training, a main path: `veon_tpu_torch.entry.train_entry` at full
@@ -35,7 +38,8 @@ Phases; any failed check raises, so the exit code is non-zero:
      against the CPU, 3 calls of the synthetic drive each;
   9. temporal serving, a main path: `veon_tpu_torch.entry.temporal_entry`
      at full VEON-B width, T=2, bf16, 4 calls of the drive, launches read
-     around exactly those calls (kernel #1 once per call); then where a
+     around exactly those calls (kernel #1 once per call, the deformable
+     stencil twice); then where a
      steady call's time goes (per-tower, temporal fusion and warp device
      time, one profiled call) and one batched F=2 forward on two frames
      without the presorted lift (kernel #3 once per frame);
@@ -132,10 +136,11 @@ Phases; any failed check raises, so the exit code is non-zero:
      veon_b --num-temporal 2 --temporal-start-epoch 1 --epochs 2` fp32 on
      2 frames of the shard with LiDAR sweeps (#3 once per epoch-0 step,
      twice per epoch-1 step), one `--auto-resume` epoch, `test
-     --num-temporal 2 --ckpt` on its checkpoint; ms/step and peak per
-     epoch; `train_entry` bf16 at F=2 and F=4 (peaks, the temporal
-     fusion's autograd bytes on both routes) and one F=2 step with
-     lss_banded=False (#2 twice);
+     --num-temporal 2 --ckpt` on its checkpoint (the deformable stencil
+     twice per two-frame step and test frame); ms/step and peak per
+     epoch; `train_entry` bf16 at F=2 and F=4 (the stencil twice per step;
+     peaks, the temporal fusion's autograd bytes on both routes) and one
+     F=2 step with lss_banded=False (#2 twice);
  32. data parallel on the card (run with phase 19's shard): (a) VEON-B
      bf16 under a one-rank NCCL group against the plain step (bit-equal
      where the plain step repeats bit for bit), then 6 warm steps of
@@ -233,7 +238,7 @@ Phases; any failed check raises, so the exit code is non-zero:
      bundle served by the daemon against the live port module on the CPU
      with the same weights: the class grid off near-ties, and for T=2 (3
      drive calls, the cache rolled by the client) the float outputs within
-     2e-4; (d) a main path, while phase 38's program and live
+     2e-4 and the C++ stencil op twice a request; (d) a main path, while phase 38's program and live
      server exist: `veon_serve_host` serves the VEON-B bundle to
      `TensorClient`, 1 + 3 requests, #1 once per request by the op
      library's counter, each grid bit-equal to the same package run in
@@ -281,6 +286,11 @@ KERNELS = {
     "bev_pool_sorted2": ("veon_tpu_torch/csrc/bev_pool_sorted.cu", "veon_tpu/ops/bev_pool.py:244"),
     "ln_dense": ("veon_tpu_torch/csrc/ln_dense.cu", "veon_tpu/ops/fused_ln.py:36"),
 }
+# the port's own kernels, which replace no TPU kernel (kept out of KERNELS,
+# whose launches every phase expects by name)
+OWN_KERNELS = {"deform_stencil": ("veon_tpu_torch/csrc/deform_stencil.cu", None)}
+# the temporal fusion's deformable layer at VEON-B: (B, D, H, W, C), heads, samples
+STENCIL_SHAPE, STENCIL_HEADS, STENCIL_SAMPLES = (1, 8, 100, 100, 256), 4, 8
 
 
 def log(*a):
@@ -294,6 +304,12 @@ def kernel_fns():
 
     mods = {"ln_dense": fused_ln}
     return {k: getattr(mods.get(k, bp), k) for k in KERNELS}
+
+
+def deform_stencil_launches():
+    from veon_tpu_torch.ops import deform_stencil as ds
+
+    return ds.deform_stencil.launches
 
 
 def reset_launches():
@@ -1001,6 +1017,92 @@ def ln_dense_phase():
     return results
 
 
+def deform_stencil_phase():
+    """The deformable stencil kernel (`csrc/deform_stencil.cu`, the port's
+    own: the JAX package leaves the stencil to XLA) against its plain
+    version (`deform_stencil_plain`) at VEON-B's fusion shape, seeded inputs
+    on the card, fp32 and bf16: every tap's q.k and the output within 1e-5
+    (fp32) or one bf16 ulp (bf16), with the share of elements equal bit for
+    bit. Times in turns (plain, kernel, kernel, plain): the registered op
+    with L2 flushed (`cold_times`) and warm (`time_ms`), the plain chain
+    likewise, and both ops' peak-memory deltas. Bound: off, q and kv read
+    once and the output written once over the HBM rate, against 4 C
+    operations a voxel and tap over the fp32 rate."""
+    from veon_tpu_torch.ops import deform_stencil as ds
+
+    dev = torch.device("cuda")
+    (B, D, H, W, C), nh, ns = STENCIL_SHAPE, STENCIL_HEADS, STENCIL_SAMPLES
+    hd = C // nh
+    g = torch.Generator(device=dev).manual_seed(17)
+    off32 = torch.tanh(2 * torch.randn(B, D, H, W, nh * ns * 3, generator=g, device=dev))
+    q32 = torch.randn(B, D, H, W, C, generator=g, device=dev)
+    kv32 = torch.randn(B, D, H, W, 2 * C, generator=g, device=dev)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    launches0 = ds.deform_stencil.launches
+    results = {"shape": list(STENCIL_SHAPE), "heads": nh, "samples": ns}
+    for dt, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        off, q, kv = off32.to(dt), q32.to(dt), kv32.to(dt)
+        taps = torch.empty(B, D, H, W, nh, 27, device=dev)
+        got = ds.launch(off, q, kv, nh, ns, dt_out=taps)
+        plain = ds.deform_stencil_plain(off, q, kv, nh, ns)
+        qs = q.reshape(B, D, H, W, nh, hd) * hd ** -0.5
+        kvp = ds._edge_pad3d(kv.reshape(B, D, H, W, nh, 2 * hd))
+        plain_taps = torch.stack([(qs * ds._shift3d(kvp, t)[..., :hd]).sum(-1)
+                                  for t in ds._TAPS], -1).float()
+        del qs, kvp
+        torch.cuda.synchronize()
+        checks = {}
+        for what, a, b in (("taps", taps, plain_taps), ("output", got, plain)):
+            af, bf = a.float(), b.float()
+            if dt == torch.float32:
+                torch.testing.assert_close(af, bf, rtol=1e-5, atol=1e-5,
+                                           msg=f"deform_stencil {name} {what}")
+            else:  # as check_kernel: one ulp on top of the fp32 tolerance
+                over = (af - bf).abs() - (bf16_ulp(torch.maximum(af.abs(), bf.abs())) + 1e-5
+                                          + 1e-5 * bf.abs())
+                if over.max().item() > 0:
+                    raise AssertionError(f"deform_stencil {name} {what}: more than one bf16 ulp "
+                                         f"from the plain version: {over.max().item()}")
+            checks[what] = dict(max_abs_err=(af - bf).abs().max().item(),
+                                bit_equal_share=(a == b).float().mean().item())
+        del got, plain, taps, plain_taps
+        calls = {"kernel": lambda: ds.deform_stencil(off, q, kv, nh, ns),
+                 "plain": lambda: ds.deform_stencil_plain(off, q, kv, nh, ns)}
+        for fn in calls.values():
+            fn()
+        cold = {k: [] for k in calls}
+        for k in ("plain", "kernel", "kernel", "plain"):
+            cold[k] += cold_times(calls[k], flush)
+        cold = {k: statistics.median(v) for k, v in cold.items()}
+        warm = {k: [] for k in calls}
+        for k in ("kernel", "plain", "plain", "kernel"):
+            warm[k].append(time_ms(calls[k]))
+        warm = {k: min(v) for k, v in warm.items()}
+        peak = {k: peak_delta(fn) for k, fn in calls.items()}
+        elt = q.element_size()
+        nbytes = (off.numel() + 2 * q.numel() + kv.numel()) * elt
+        ops = 27 * 4 * B * D * H * W * C
+        bound_ms, bound_by = bound(nbytes, ops)
+        results[name] = dict(
+            checks=checks, max_abs_err=checks["output"]["max_abs_err"], ms=cold["kernel"],
+            plain_ms=cold["plain"], warm_ms=warm["kernel"], warm_plain_ms=warm["plain"],
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+            bound_share=bound_ms / cold["kernel"], peak_delta_bytes=peak["kernel"],
+            plain_peak_delta_bytes=peak["plain"])
+        log(f"kernel deform_stencil {name} {STENCIL_SHAPE}, {nh} heads x {ns} samples: L2 flushed: "
+            f"kernel {cold['kernel']:.4f} ms, plain {cold['plain']:.4f} ms; warm: kernel "
+            f"{warm['kernel']:.4f}, plain {warm['plain']:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), share "
+            f"{bound_ms / cold['kernel']:.3f}; peak memory delta kernel "
+            f"{peak['kernel'] / 2**20:.1f} MiB, plain {peak['plain'] / 2**20:.1f} MiB; checks "
+            f"{checks}")
+        del off, q, kv
+    results["phase_launches"] = ds.deform_stencil.launches - launches0
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
 def temporal_parity_phase(calls=3):
     """Streaming temporal serving at the tiny preset in fp32, T=2 and T=3:
     a session on the card and one on the CPU (plain versions), the card's
@@ -1040,7 +1142,8 @@ def temporal_main_path(cfg=None, calls=4):
     """Streaming temporal serving at full width: `temporal_entry(cfg)`
     (default VEON-B T=2 bf16; seeded random weights), `calls` calls of the
     drive, every launch count read around exactly those calls: kernel #1
-    once per call, no other kernel."""
+    once per call, no other kernel of KERNELS, the deformable stencil twice
+    per call."""
     from veon_tpu_torch.entry import temporal_entry
 
     base = phase_base()
@@ -1050,6 +1153,7 @@ def temporal_main_path(cfg=None, calls=4):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     kernels = reset_launches()
+    stencil0 = deform_stencil_launches()
     times, out = [], None
     for r in reqs:
         t = time.perf_counter()
@@ -1057,10 +1161,12 @@ def temporal_main_path(cfg=None, calls=4):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     launches = {k: fn.launches for k, fn in kernels.items()}
+    stencil = deform_stencil_launches() - stencil0
     peak = torch.cuda.max_memory_allocated()
     want = {k: calls if k == "bev_pool_pooled" else 0 for k in launches}
-    if launches != want:
-        raise AssertionError(f"temporal launches {launches} in {calls} calls, expected {want}")
+    if launches != want or stencil != 2 * calls:
+        raise AssertionError(f"temporal launches {launches}, deform_stencil {stencil} in {calls} "
+                             f"calls, expected {want}, deform_stencil {2 * calls}")
     pred = out["pred"]
     if tuple(pred.shape) != (1, 200, 200, 16) or pred.dtype != torch.uint8:
         raise AssertionError(f"temporal pred {tuple(pred.shape)} {pred.dtype}")
@@ -1077,7 +1183,8 @@ def temporal_main_path(cfg=None, calls=4):
         f"launches {launches}, class histogram {classes}")
     return session, reqs, dict(call_ms=times, steady_median_ms=steady, peak_bytes=peak,
                                peak_above_start_bytes=peak - base,
-                               launches=launches, setup_s=setup_s, classes=classes,
+                               launches=launches, stencil_launches=stencil, setup_s=setup_s,
+                               classes=classes,
                                depth_input=tuple(reqs[0]["depth_imgs"].shape[3:5]))
 
 
@@ -3205,9 +3312,12 @@ def temporal_cli_phase(root, frames=4):
             "--remat", "none"]
     res, launches_sorted2 = {}, 0
     start = phase_base()
+    stencil = [deform_stencil_launches()]
     with step_probe("make_train_step", peaks=True) as probe:
         first, _o1, s1, l1 = run_cli(["train", *base, "--epochs", "2"])
+        stencil.append(deform_stencil_launches())
         second, out2, s2, l2 = run_cli(["train", *base, "--epochs", "3", "--auto-resume"])
+        stencil.append(deform_stencil_launches())
     if first != {"start_epoch": 0, "step": 2 * frames} or \
             second != {"start_epoch": 2, "step": 3 * frames} or "(epoch 2)" not in out2 or \
             probe.frames != [1] * frames + [2] * (2 * frames):
@@ -3232,14 +3342,24 @@ def temporal_cli_phase(root, frames=4):
     r, _o, ts, lt = run_cli(["test", "--preset", "veon_b", "--num-temporal", "2", "--data-root",
                              root, "--ann", test_pkl, "--workers", "2", "--ckpt",
                              os.path.join(work, f"step_{3 * frames}")])
+    stencil.append(deform_stencil_launches())
     expect_launches(lt, {k: 2 * frames if k == "bev_pool_sorted2" else 0 for k in lt},
                     "test --num-temporal 2 --ckpt")
+    # the fusion's deformable layer twice a two-frame step or frame, in the
+    # forward (its backward re-runs the plain version): train epochs 1 and 2
+    # (`frames` steps each), the test's frames
+    stencil = [b - a for a, b in zip(stencil, stencil[1:])]
+    if stencil != [2 * frames] * 3:
+        raise AssertionError(f"deform_stencil launches {stencil} in train --epochs 2, "
+                             f"--auto-resume and test, expected {2 * frames} each")
     if not np.isfinite(r["mIoU"]):
         raise AssertionError(f"test --num-temporal 2 --ckpt mIoU {r['mIoU']}")
     shutil.rmtree(work, ignore_errors=True)
     launches_sorted2 += sum(d["bev_pool_sorted2"] for d in probe.launches) + lt["bev_pool_sorted2"]
     res["cli"] = dict(epochs=epochs, losses=probe.losses, cli_s=[s1, s2], test_miou=r["mIoU"],
-                      test_s=ts, launches=probe.launches, test_launches=lt)
+                      test_s=ts, launches=probe.launches, test_launches=lt,
+                      stencil_launches=stencil)
+    res["stencil_launches"] = sum(stencil)
     log(f"train --preset veon_b --num-temporal 2 --temporal-start-epoch 1 fp32, {frames} frames: "
         + "; ".join(f"epoch {e} (F={d['frames']}) step ms {[round(t, 3) for t in d['step_ms']]} "
                     f"warm {d['warm_ms']:.3f}, peak above the phase's start "
@@ -3247,7 +3367,8 @@ def temporal_cli_phase(root, frames=4):
                     for e, d in epochs.items())
         + f"; epoch 3 by --auto-resume from NEXT_EPOCH 2; #3 once per F=1 step, twice per F=2 "
         f"step; test --num-temporal 2 --ckpt mIoU {r['mIoU']:.4f} in {ts:.1f} s (#3 twice per "
-        f"frame); CLI s {[round(s1, 1), round(s2, 1)]}")
+        f"frame); deform_stencil {stencil} (train, --auto-resume, test); CLI s "
+        f"{[round(s1, 1), round(s2, 1)]}")
     res["bf16"] = {}
     for F in (2, 4):
         start = phase_base()
@@ -3256,6 +3377,7 @@ def temporal_cli_phase(root, frames=4):
         seen, remove = _fusion_memory(trainer.model)
         torch.cuda.reset_peak_memory_stats()
         kernels = reset_launches()
+        stencil0 = deform_stencil_launches()
         times, losses = [], []
         for _ in range(3):
             t = time.perf_counter()
@@ -3264,9 +3386,12 @@ def temporal_cli_phase(root, frames=4):
             times.append((time.perf_counter() - t) * 1e3)
             losses.append({k: float(v) for k, v in lo.items()})
         launches = {k: fn.launches for k, fn in kernels.items()}
+        launches["deform_stencil"] = deform_stencil_launches() - stencil0
         peak = torch.cuda.max_memory_allocated() - start
-        expect_launches(launches, {k: 3 * F if k == "bev_pool_sorted2" else 0 for k in launches},
+        expect_launches(launches, {k: 3 * F if k == "bev_pool_sorted2" else
+                                   6 if k == "deform_stencil" else 0 for k in launches},
                         f"train_entry bf16 F={F}")
+        res["stencil_launches"] += 6
         launches_sorted2 += launches["bev_pool_sorted2"]
         stencil = {k: v[-1] for k, v in seen.items()}
         trainer.model.alignnet.temporal_fusion.t_deform.use_stencil = False
@@ -3280,7 +3405,9 @@ def temporal_cli_phase(root, frames=4):
                               peak_bytes=peak, launches=launches, losses=losses,
                               fusion_saved_bytes=dict(stencil=stencil, gather=gather))
         log(f"train_entry veon_b bf16 F={F}: step ms {[round(t, 3) for t in times]}, peak above "
-            f"the start (model included) {peak / 2**30:.3f} GiB, #3 {launches['bev_pool_sorted2']} in 3 steps; the "
+            f"the start (model included) {peak / 2**30:.3f} GiB, #3 "
+            f"{launches['bev_pool_sorted2']} and deform_stencil {launches['deform_stencil']} in 3 "
+            f"steps; the "
             f"temporal fusion's train-mode forward leaves (output + saved for backward) "
             + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in stencil.items())
             + " on the stencil route, "
@@ -5358,7 +5485,8 @@ def native_ops_phase(bg):
                              f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
     counts = dict(kv.split("=") for kv in r.stdout.split("launches ")[1].split())
     counts = {k: int(v) for k, v in counts.items()}
-    if counts != {"bev_pool_pooled": 1, "bev_pool_sorted": 2, "bev_pool_sorted2": 1}:
+    if counts != {"bev_pool_pooled": 1, "bev_pool_sorted": 2, "bev_pool_sorted2": 1,
+                  "deform_stencil": 0}:
         raise AssertionError(f"the op library counted {counts}")
     names = ("#1 pooled", "#2 full frustum", "#2 K-band", "#3 band + spray")
     for i, (name, want) in enumerate(zip(names, torch.load(bg["want"]))):
@@ -5505,6 +5633,9 @@ def native_tiny_t2_phase(bg):
     finally:
         lines, _err = _daemon_stop(proc)
         shutil.rmtree(d, ignore_errors=True)
+    per = [ln["launches"]["deform_stencil"] for ln in lines]
+    if per != [2 * (i + 1) for i in range(len(reqs))]:
+        raise AssertionError(f"T=2 daemon deform_stencil launches {per}, expected 2 a request")
     res = {"calls": len(reqs), "max_abs_err": errs, "agree_all": agree,
            "start_s": start_s, "server_ms": [ln["server_ms"] for ln in lines],
            "launches": lines[-1]["launches"], "compile_s": b.manifest["compile_s"]}
@@ -5598,7 +5729,8 @@ def native_main_path(bg, f1_path, server, frame):
         shutil.rmtree(d, ignore_errors=True)
     per = [ln["launches"]["bev_pool_pooled"] for ln in lines]
     if per != [1, 2, 3, 4] or any(ln["launches"]["bev_pool_sorted"] or
-                                  ln["launches"]["bev_pool_sorted2"] for ln in lines):
+                                  ln["launches"]["bev_pool_sorted2"] or
+                                  ln["launches"]["deform_stencil"] for ln in lines):
         raise AssertionError(f"daemon launch counts {[ln['launches'] for ln in lines]}")
     if py_launches != 4:
         raise AssertionError(f"the package run in Python launched #1 {py_launches} times")
@@ -5687,7 +5819,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    builds = native.build(*sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()}))
+    builds = native.build(*sorted({os.path.basename(src)[:-3]
+                                   for src, _ in (*KERNELS.values(), *OWN_KERNELS.values())}))
     log(f"build: {time.perf_counter() - t0:.1f} s wall, "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in builds.items()))
     for k, v in builds.items():
@@ -5711,6 +5844,7 @@ def main():
     del metas, pre, feat, metric, dist
     torch.cuda.empty_cache()
     ln = ln_dense_phase()
+    stencil = deform_stencil_phase()
     lap("1-2 kernels")
     # phase 43(a): the AOTInductor compiles start now, after the kernels' timings
     native_bg = native_start(cfg)
@@ -5864,9 +5998,15 @@ def main():
                                  + tools["launches_sorted2"]),
             # no main path calls kernel #4 (the model keeps LayerNorm + Dense)
             "ln_dense": (ln["hsa_qkv_bf16"], main_res["launches"]["ln_dense"]
-                         + temporal["launches"]["ln_dense"])}
+                         + temporal["launches"]["ln_dense"]),
+            # twice per streaming call (phases 9 and 22) and per temporal
+            # train step or test frame (phase 31)
+            "deform_stencil": (stencil["bf16"], temporal["stencil_launches"]
+                               + zoe_t2["stencil_launches"]
+                               + temporal_cli["stencil_launches"])}
+    sources = {**KERNELS, **OWN_KERNELS}
     table = {"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+        "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"]} for name, (r, launches) in rows.items()]}
@@ -5875,7 +6015,8 @@ def main():
         json.dump({"nvidia_smi": smi, "kind": kind, "kernel": kern, "sorted_kernels": sorted_res,
                    "pooled_backward": backward, "train_small_parity": train_small,
                    "train": train, "small_parity_max_abs": small, "main_path": main_res,
-                   "breakdown": where, "ln_dense": ln, "temporal_small_parity": temporal_small,
+                   "breakdown": where, "ln_dense": ln, "deform_stencil": stencil,
+                   "temporal_small_parity": temporal_small,
                    "temporal_main_path": temporal, "temporal_breakdown": temporal_where,
                    "batched_temporal": batched, "text_tower": text, "serve_f1": serve_f1,
                    "serve_t2": serve_t2, "metrics": metrics, "weights_tiny": weights_tiny,
@@ -5894,7 +6035,8 @@ def main():
                    "script_s": time.perf_counter() - script_t0},
                   f, indent=1)
     for r, _ in rows.values():
-        if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "library_ms", "bound_ms")):
+        if not all(r[k] is None or math.isfinite(r[k])
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")):
             raise AssertionError("non-finite timing")
     log(f"phase seconds: {laps}")
     log(f"whole script: {time.perf_counter() - script_t0:.1f} s wall")

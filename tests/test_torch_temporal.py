@@ -34,6 +34,7 @@ from veon_tpu_torch.configs import presets
 from veon_tpu_torch.data.transforms import normalize_in_graph
 from veon_tpu_torch.model.veon import VOXEL_OUTPUTS, VeonModel, retrieval_map
 from veon_tpu_torch.nn import alignnet as t_align
+from veon_tpu_torch.ops import deform_stencil as t_stencil
 from veon_tpu_torch.ops.grid_sample import grid_sample_3d
 from veon_tpu_torch.serve.streaming import TemporalSession
 
@@ -154,9 +155,9 @@ def test_shift3d_matches_reference():
     """Every stencil tap: edge replication on each axis, as JAX's pad-based
     `_shift3d`."""
     x = _rand(45, 1, 3, 4, 5, 2, 3)
-    xp = t_align._edge_pad3d(to_torch(x))
-    for t in t_align._TAPS:
-        np.testing.assert_array_equal(to_np(t_align._shift3d(xp, t)),
+    xp = t_stencil._edge_pad3d(to_torch(x))
+    for t in t_stencil._TAPS:
+        np.testing.assert_array_equal(to_np(t_stencil._shift3d(xp, t)),
                                       np.asarray(j_align._shift3d(jnp.asarray(x), t)))
 
 
@@ -166,7 +167,7 @@ def test_linspace_matches_jitted_reference(n):
     jitted jnp.linspace (torch.linspace rounds up to half the entries
     differently)."""
     want = np.asarray(jax.jit(lambda: jnp.linspace(-1, 1, n))())
-    np.testing.assert_array_equal(to_np(t_align._linspace_pm1(n, "cpu")), want)
+    np.testing.assert_array_equal(to_np(t_stencil._linspace_pm1(n, "cpu")), want)
 
 
 @pytest.mark.parametrize("T", [2, 3])

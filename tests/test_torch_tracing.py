@@ -121,7 +121,7 @@ def test_f1_request_spans(f1):
             assert up["t0_ns"] <= s["t0_ns"] and s["t1_ns"] <= up["t1_ns"], s["name"]
     assert spans[0]["thread"] != spans[1]["thread"]  # the caller's and the worker's
     assert set(rec["launches"]) == {"bev_pool_pooled", "bev_pool_sorted", "bev_pool_sorted2",
-                                    "ln_dense"}
+                                    "ln_dense", "deform_stencil"}
 
 
 def test_t2_requests_spans(t2):

@@ -55,7 +55,7 @@ dtype (fp32 for every preset, as the reference's CLI); `benchmark` in bf16
 unless VEON_ENTRY_DTYPE names another; `export` the F=1 graph in bf16 (the
 flagship's) and the streaming step in the preset's dtype. A `.pt2` holds
 its weights and runs on the device it was exported on; it loads where
-`veon_tpu_torch` imports, since kernels #1-#3 are its registered
+`veon_tpu_torch` imports, since kernels #1-#3 and the stencil are its registered
 operators (`utils/export.py` `load_inference`; `serve/server.py`
 `serve_exported` serves one). Weights come from the
 reference's PyTorch checkpoints (`--load-from`, `--depth-load-from`,

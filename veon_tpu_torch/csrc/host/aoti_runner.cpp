@@ -1,8 +1,8 @@
 // veon_aoti_runner: runs an exported VEON serving package once, with no
 // Python (the port's counterpart of the JAX package's one-shot PJRT
-// runner). Loads the op library (veon_ops.cpp: kernels #1-#3 as
-// torch.ops.veon.*), then the AOTInductor package (utils/export.py
-// `export_native_bundle`: model.pt2), feeds .npy inputs in the package's
+// runner). Loads the op library (veon_ops.cpp: kernels #1-#3 and the
+// deformable stencil as torch.ops.veon.*), then the AOTInductor package
+// (utils/export.py `export_native_bundle`: model.pt2), feeds .npy inputs in the package's
 // flat input order (the bundle's manifest "order"), runs, and writes one
 // .npy per output (bf16 as '<V2').
 //

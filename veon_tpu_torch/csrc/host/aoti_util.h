@@ -114,10 +114,11 @@ struct OpsLibrary {
     return "";
   }
 
-  // "bev_pool_pooled=N bev_pool_sorted=N bev_pool_sorted2=N"
+  // "bev_pool_pooled=N bev_pool_sorted=N bev_pool_sorted2=N deform_stencil=N"
   std::string counts() const {
     std::string s;
-    for (const char* op : {"bev_pool_pooled", "bev_pool_sorted", "bev_pool_sorted2"})
+    for (const char* op : {"bev_pool_pooled", "bev_pool_sorted", "bev_pool_sorted2",
+                           "deform_stencil"})
       s += std::string(s.empty() ? "" : " ") + op + "=" + std::to_string(launches(op));
     return s;
   }

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import PropagationConfig
+from ..ops.deform_stencil import deform_stencil, sample_grid
 from ..ops.grid_sample import grid_sample_3d
 from ..utils import tracing
 from .layers import BatchNorm, CatFusionLift, Conv3d
@@ -74,39 +75,6 @@ class PredHead3DSem(nn.Module):
         return torch.sigmoid(self.occ_conv3(x)) - 0.5
 
 
-def _edge_pad3d(x):
-    """x (B, Z, Y, X, ...) with one edge-replicated cell added on both sides
-    of Z, Y and X: the source of every `_shift3d` view."""
-    for ax in (1, 2, 3):
-        n = x.shape[ax]
-        x = torch.cat([x.narrow(ax, 0, 1), x, x.narrow(ax, n - 1, 1)], ax)
-    return x
-
-
-def _shift3d(xp, t):
-    """x shifted by t = (tz, ty, tx), |t| <= 1, with edge replication,
-    out[i] = x[clamp(i + t, 0, n - 1)] on each axis (the border-padding
-    counterpart of a stencil tap), as a view of xp = _edge_pad3d(x)."""
-    (tz, ty, tx), (Z, Y, X) = t, (xp.shape[1] - 2, xp.shape[2] - 2, xp.shape[3] - 2)
-    return xp[:, 1 + tz:1 + tz + Z, 1 + ty:1 + ty + Y, 1 + tx:1 + tx + X]
-
-
-def _linspace_pm1(n: int, device) -> torch.Tensor:
-    """jnp.linspace(-1, 1, n) as the jitted JAX graph computes it, bit for
-    bit: step = iota * fp32(1 / (n - 1)) (XLA multiplies by the reciprocal
-    of the constant divisor), -1 * (1 - step) + step, with 1 appended.
-    torch.linspace rounds differently in up to half the entries."""
-    if n == 1:
-        return torch.full((1,), -1.0, device=device)
-    div = n - 1
-    step = torch.arange(div, dtype=torch.float32, device=device) * float(
-        torch.tensor(1.0, dtype=torch.float32) / div)
-    return torch.cat([-(1 - step) + step, torch.ones(1, device=device)])
-
-
-_TAPS = tuple((tz, ty, tx) for tz in (-1, 0, 1) for ty in (-1, 0, 1) for tx in (-1, 0, 1))
-
-
 class TemporalDeformable(nn.Module):
     """3D deformable attention from a reference feature into another frame's
     feature: learned offsets, num_heads x num_samples trilinear taps.
@@ -115,7 +83,8 @@ class TemporalDeformable(nn.Module):
     Offsets are bounded by tanh(.)/size, so every sample lands within
     +-0.5 cell of its own voxel and trilinear sampling reduces to a fixed
     3x3x3 stencil with per-sample hat weights (use_stencil=True, the
-    model's form); use_stencil=False is the general gather through
+    model's form: `ops/deform_stencil.py`, its CUDA kernel on the card,
+    the plain version's gradients); use_stencil=False is the general gather through
     `grid_sample_3d` with border padding, kept for the cross-check. Dtypes
     of every intermediate follow JAX's promotion: offsets in the compute
     dtype, the sampling grid, hat weights and weighted sums in fp32, the
@@ -136,46 +105,15 @@ class TemporalDeformable(nn.Module):
         B, D, H, W, C = feat_curr.shape
         nh, ns = self.num_heads, self.num_samples
         hd = C // nh
-        dev = feat_curr.device
         kv = self.key_value_proj(feat_prev)
         query = self.query_proj(feat_curr)
         off = torch.tanh(self.offset_conv2(F.gelu(self.offset_conv1(feat_curr))))
-        off = off.reshape(B, D, H, W, nh, ns, 3)
-
-        zz, yy, xx = torch.meshgrid(_linspace_pm1(D, dev), _linspace_pm1(H, dev),
-                                    _linspace_pm1(W, dev), indexing="ij")
-        base = torch.stack([zz, yy, xx], -1)[None, :, :, :, None, None, :]  # (z, y, x)
-        norm = tracing.uploaded(torch.tensor([D, H, W], dtype=off.dtype, device=dev))
-        grid_zyx = (base + off / norm).clamp(-1, 1)  # fp32
-
-        q = query.reshape(B, D, H, W, nh, hd)
-        kvh = kv.reshape(B, D, H, W, nh, 2 * hd)
         if self.use_stencil:
-            # per-sample offset in cells after the clip (align_corners:
-            # cells = (g + 1) / 2 * (size - 1))
-            sizes = tracing.uploaded(
-                torch.tensor([D - 1, H - 1, W - 1], dtype=torch.float32, device=dev)) / 2.0
-            delta = (grid_zyx - base) * sizes
-            qs = q * hd ** -0.5
-            # a tap's hat weight is a product of one factor per axis, each
-            # max(0, 1 - |delta_axis - t_axis|) with t_axis in (-1, 0, 1):
-            # the 9 factors are computed once (the same values, bit for bit)
-            hats = [{s: torch.clamp_min(1.0 - (delta[..., a] - s).abs(), 0.0) for s in (-1, 0, 1)}
-                    for a in range(3)]
-            kvp = _edge_pad3d(kvh)  # the taps below are views of it
-            weights, logits = [], 0.0
-            for tz, ty, tx in _TAPS:
-                w = hats[0][tz] * hats[1][ty] * hats[2][tx]  # (B, D, H, W, heads, S)
-                d_t = (qs * _shift3d(kvp, (tz, ty, tx))[..., :hd]).sum(-1)  # (B, D, H, W, heads)
-                logits = logits + w * d_t[..., None]
-                weights.append(w)
-            attn = torch.softmax(logits.float(), -1).to(q.dtype)
-            fused = 0.0
-            for w, t in zip(weights, _TAPS):
-                g = (attn * w).sum(-1)
-                fused = fused + g[..., None] * _shift3d(kvp, t)[..., hd:]
-            fused = fused.reshape(B, D, H, W, C)
+            fused = deform_stencil(off, query, kv, nh, ns)
         else:
+            _base, grid_zyx = sample_grid(off.reshape(B, D, H, W, nh, ns, 3))
+            q = query.reshape(B, D, H, W, nh, hd)
+            kvh = kv.reshape(B, D, H, W, nh, 2 * hd)
             grid = grid_zyx.flip(-1)  # (x, y, z)
             kv_h = kvh.permute(0, 4, 1, 2, 3, 5).reshape(B * nh, D, H, W, 2 * hd)
             grid_h = grid.permute(0, 4, 1, 2, 3, 5, 6).reshape(B * nh, D, H, W, ns, 3)

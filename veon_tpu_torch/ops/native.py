@@ -7,13 +7,15 @@ than the CUDA runtime: `ln_dense.cu` takes the driver's TMA descriptor
 encoder through the runtime's driver entry point.
 
 `build_host` compiles with g++ against the installed torch's `include/`
-and `lib/` (`HOST_TARGETS`): the op library `veon_ops` (kernels #1-#3 as
-C++-registered `torch.ops.veon.*`, linking the kernel libraries by path
-where torch has CUDA, CPU-only otherwise), the one-shot runner
+and `lib/` (`HOST_TARGETS`): the op library `veon_ops` (kernels #1-#3 and
+the deformable stencil as C++-registered `torch.ops.veon.*`, linking the
+kernel libraries by path where torch has CUDA, CPU-only otherwise), the
+one-shot runner
 `veon_aoti_runner` and the daemon `veon_serve_host` of an exported package
 (`utils/export.py` `export_native_bundle`), and the daemon's echo build
 `veon_serve_host_echo` with no libtorch. A Python process never loads
-`veon_ops`: it would define the ops `ops/bev_pool.py` defines.
+`veon_ops`: it would define the ops `ops/bev_pool.py` and
+`ops/deform_stencil.py` define.
 
 Everything is built at first use from the checkout's sources only, into
 `build/veon_tpu_torch/` beside the package, and named by a hash of the
@@ -112,7 +114,8 @@ HOST_TARGETS = {
                         False),
     "veon_serve_host_echo": ("host/serve_host.cpp", ("host/frame.h",), False, False),
 }
-KERNEL_LIBRARIES = ("bev_pool_pooled", "bev_pool_sorted")  # what veon_ops launches
+# what veon_ops launches
+KERNEL_LIBRARIES = ("bev_pool_pooled", "bev_pool_sorted", "deform_stencil")
 
 
 def torch_with_cuda() -> bool:

@@ -9,8 +9,9 @@ The weights live inside the program; the frames, the rig metas (with the
 fixed rig's presorted lift, "lift_sorted"), the open-vocabulary matrix and,
 for the streaming step, the temporal cache and the text embedding are its
 inputs, as in JAX's artifacts; a dict input keeps the key order it was
-exported with (`torch.export` flattens dicts in order). Kernels #1-#3 stay in the graph as the
-registered operators of `ops/bev_pool.py` (`torch.ops.veon.*`), so a
+exported with (`torch.export` flattens dicts in order). Kernels #1-#3 and the deformable
+stencil stay in the graph as the registered operators of `ops/bev_pool.py` and
+`ops/deform_stencil.py` (`torch.ops.veon.*`), so a
 `.pt2` loads only where `veon_tpu_torch` imports; `load_inference` imports
 them. A program runs on the device it was exported on.
 
@@ -27,7 +28,8 @@ input leaf (bf16 as '<V2') and a `manifest.json` with JAX's keys. Its
 consumers are the C++ runner and daemon over libtorch
 (`csrc/host/aoti_runner.cpp`, `csrc/host/serve_host.cpp`, built by
 `ops/native.py` `build_host`), which load the op library `veon_ops`
-(kernels #1-#3 as C++-registered `torch.ops.veon.*`) before the package.
+(kernels #1-#3 and the deformable stencil as C++-registered
+`torch.ops.veon.*`) before the package.
 JAX's PJRT compile options (`compile_options.pb`, `--copt`) have no
 counterpart: the package is compiled at export, for the device it was
 exported on.
@@ -74,11 +76,12 @@ def export_inference(module: torch.nn.Module, example_args: Tuple, path: str) ->
 
 
 def load_program(path: str) -> torch.export.ExportedProgram:
-    """A saved `.pt2` program, with kernels #1-#3 registered first (each
-    built on the card at its first launch). Its `example_inputs` are the
-    arguments it was exported at, on the device they were saved from."""
+    """A saved `.pt2` program, with kernels #1-#3 and the deformable
+    stencil registered first (each built on the card at its first launch).
+    Its `example_inputs` are the arguments it was exported at, on the device
+    they were saved from."""
     from ..entry import _no_tf32
-    from ..ops import bev_pool  # noqa: F401  (registers torch.ops.veon.*)
+    from ..ops import bev_pool, deform_stencil  # noqa: F401  (register torch.ops.veon.*)
 
     # fp32 stays fp32: a process flag does not travel in an artifact
     _no_tf32(torch.device("cuda"))
@@ -273,7 +276,8 @@ def export_native_bundle(module: torch.nn.Module, example_args: Tuple, outdir: s
 
       <outdir>/model.pt2       the program compiled by AOTInductor for the
                                inputs' device (`AOTI_CONFIGS`); its extern
-                               nodes call kernels #1-#3 by op name
+                               nodes call kernels #1-#3 and the
+                               deformable stencil by op name
       <outdir>/bind/<leaf>.npy one file per fixed input leaf, for --bind
       <outdir>/manifest.json   JAX's keys: "order" (the package's flat input
                                names), "request", "binds", "outputs",
@@ -499,9 +503,9 @@ class NativeBundle:
 
     def load_python(self):
         """The package loaded in this process (`torch._inductor.aoti_load_package`),
-        its extern nodes calling the Python ops of `ops/bev_pool.py`:
-        run(flat inputs) -> {output name: tensor}."""
-        from ..ops import bev_pool  # noqa: F401  (registers torch.ops.veon.*)
+        its extern nodes calling the Python ops of `ops/bev_pool.py` and
+        `ops/deform_stencil.py`: run(flat inputs) -> {output name: tensor}."""
+        from ..ops import bev_pool, deform_stencil  # noqa: F401  (register torch.ops.veon.*)
 
         loader = torch._inductor.aoti_load_package(self.package).loader
         names = self.manifest["outputs"]

@@ -25,7 +25,7 @@ sync debug mode warns at every such call while a traced request computes
 on its thread (`attach`), and each warning is counted where it happens
 and not shown (other warnings are shown once the request is done). A
 request also holds its kernel launches, the deltas of the `.launches`
-counters of `ops/bev_pool.py` and `ops/fused_ln.py`.
+counters of `ops/bev_pool.py`, `ops/fused_ln.py` and `ops/deform_stencil.py`.
 
 Tracing is on after `enable()`, and for each request that reaches
 `ServeHandler` while a `torch.profiler` records, on any thread and in
@@ -112,10 +112,11 @@ def _stack() -> List:
 
 
 def _launch_counts() -> Dict[str, int]:
-    from ..ops import bev_pool, fused_ln
+    from ..ops import bev_pool, deform_stencil, fused_ln
 
     return {f.__name__: f.launches for f in (bev_pool.bev_pool_pooled, bev_pool.bev_pool_sorted,
-                                             bev_pool.bev_pool_sorted2, fused_ln.ln_dense)}
+                                             bev_pool.bev_pool_sorted2, fused_ln.ln_dense,
+                                             deform_stencil.deform_stencil)}
 
 
 class _Request:
