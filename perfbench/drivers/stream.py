@@ -62,11 +62,11 @@ def build_program(torch, cell: harness.Cell, seed: int, device):
     """The port's handler for the cell, with the benchmark's weights."""
     from veon_tpu_torch import entry
     from veon_tpu_torch.configs import presets
-    from perfbench.reference.configs import presets as ref_presets
+    from perfbench.reference.configs import base as ref_base
 
     nt = cell.traffic["num_temporal"]
     cfg = harness.build_config(presets, cell.config, nt)
-    skel = harness.make_weights(harness.build_config(ref_presets, cell.config, nt, "float32"),
+    skel = harness.make_weights(harness.config_from_file(ref_base, cell.config, nt, "float32"),
                                 seed, device)
     model = entry.build_model(cfg, device, 0, None)
     model.load_state_dict(skel.state_dict(), strict=True)

@@ -18,6 +18,7 @@ import json
 import math
 import os
 import sys
+import typing
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -113,10 +114,65 @@ def _as_lists(x):
     return x
 
 
+def config_from_file(base, conf: Dict, num_temporal: int = 1,
+                     compute_dtype: Optional[str] = None):
+    """The configuration of `conf` (a `configs/<name>.json`) as the tree of
+    `base` (the reference's or the port's `configs/base.py`): its `sizes`,
+    `num_temporal`, and the file's `compute_dtype` unless `compute_dtype`
+    is given. The file gives every field; lists become tuples and whole
+    numbers floats where the field says so, so the frozen tree compares
+    and hashes as one built in code. A key missing or unknown, or a value
+    of the wrong kind or length, is refused by its name."""
+    sizes = conf["sizes"]
+    clash = sorted({"num_temporal", "compute_dtype"} & set(sizes))
+    if clash:
+        raise ValueError(f"{conf['name']}.json: sizes may not hold {clash}")
+    values = dict(sizes, num_temporal=num_temporal,
+                  compute_dtype=compute_dtype or conf["compute_dtype"])
+    return _typed(base.VeonConfig, values, conf["name"] + ".json", "")
+
+
+def _typed(hint, value, file: str, key: str):
+    """`value` of the file's `key` (a dotted path, "" for `sizes`) as the
+    field type `hint`."""
+    def refuse(what):
+        raise ValueError(f"{file}: {key or 'sizes'} {what}")
+
+    def at(name):
+        return f"{key}.{name}" if key else name
+
+    if dataclasses.is_dataclass(hint):
+        if not isinstance(value, dict):
+            refuse(f"is not an object: {value!r}")
+        names = [f.name for f in dataclasses.fields(hint)]
+        missing = [at(n) for n in names if n not in value]
+        unknown = [at(n) for n in sorted(set(value) - set(names))]
+        if missing or unknown:
+            refuse(", ".join([f"misses keys {missing}"] * bool(missing)
+                             + [f"has unknown keys {unknown}"] * bool(unknown)))
+        hints = typing.get_type_hints(hint)
+        return hint(**{n: _typed(hints[n], value[n], file, at(n)) for n in names})
+    if typing.get_origin(hint) is tuple:
+        args = typing.get_args(hint)
+        if not isinstance(value, list):
+            refuse(f"is not a list: {value!r}")
+        if len(args) == 2 and args[1] is Ellipsis:
+            args = (args[0],) * len(value)
+        if len(args) != len(value):
+            refuse(f"has {len(value)} entries, not {len(args)}")
+        return tuple(_typed(h, v, file, f"{key}[{i}]")
+                     for i, (h, v) in enumerate(zip(args, value)))
+    if hint is float and type(value) is int:
+        return float(value)
+    if type(value) is not hint:
+        refuse(f"is not of type {hint.__name__}: {value!r}")
+    return value
+
+
 def build_config(presets, conf: Dict, num_temporal: int = 1, compute_dtype: Optional[str] = None):
-    """The configuration of `conf` (a `configs/<name>.json`) built from
-    `presets` (the port's or the reference's module of the same name),
-    refused unless it holds exactly the file's `sizes`: the file is the
+    """The port's configuration of `conf` (a `configs/<name>.json`) built
+    from the port's `presets` module by the file's `preset`, refused
+    unless it holds exactly the file's `sizes`: the file is the
     configuration as it is run."""
     cfg = dataclasses.replace(getattr(presets, conf["preset"])(num_temporal=num_temporal),
                               compute_dtype=compute_dtype or conf["compute_dtype"])

@@ -43,7 +43,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from .harness import build_config, make_weights, rig_metas
+from .harness import config_from_file, make_weights, rig_metas
 
 TILES = 3  # bird's-eye tiles per side of `vox_tile_relerr`
 
@@ -110,7 +110,7 @@ class RefServing:
                  compute_dtype: str = "float32"):
         import torch
         from .reference import no_tf32
-        from .reference.configs import presets
+        from .reference.configs import base
         from .reference.geometry.frustum import sensor2keyego_chain
         from .reference.nn import text
 
@@ -119,7 +119,7 @@ class RefServing:
         if dev.type == "cuda":
             no_tf32()
         self.dev = dev
-        self.cfg = cfg = build_config(presets, conf, num_temporal, compute_dtype)
+        self.cfg = cfg = config_from_file(base, conf, num_temporal, compute_dtype)
         self.model = make_weights(cfg, seed, dev)
         self.num_temporal = num_temporal
         prompts, refl = text.build_vocabulary(cfg.vocabulary)

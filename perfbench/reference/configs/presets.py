@@ -1,6 +1,7 @@
-"""Model presets of the benchmark's configurations: VEON-B, on the
-DA-V2 and the ZoeDepth-NK depth branch, and the unit-test miniature (the
-same values as `veon_tpu/configs/presets.py`)."""
+"""The unit-test miniature (the same values as
+`veon_tpu/configs/presets.py`). The benchmark's configurations are not
+presets here: the reference builds each from its `configs/<name>.json`
+(`harness.config_from_file`)."""
 
 from __future__ import annotations
 
@@ -8,28 +9,6 @@ import dataclasses
 
 from .base import (DataConfig, DepthConfig, GridConfig, HSAConfig,
                    PropagationConfig, SANConfig, VeonConfig)
-
-
-def veon_b(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonConfig:
-    """VEON-B @ 512x1408 with DepthAnythingV2-L depth; num_temporal frames
-    (F) per forward, 2 for the flagship's temporal serving."""
-    return VeonConfig(
-        compute_dtype=compute_dtype,
-        num_temporal=num_temporal,
-        san=SANConfig(),
-        hsa=HSAConfig(clip_dim=768, num_heads=12, fusion_map=((0, 3, 3), (1, 6, 6), (2, 9, 9))),
-        propagation=PropagationConfig(dim=256, layer_depth=5, clip_proj_dim=512),
-        depth=DepthConfig(encoder="vitl"),
-    )
-
-
-def veon_b_zoe(num_temporal: int = 1, compute_dtype: str = "float32") -> VeonConfig:
-    """VEON-B with the ZoeDepth-NK (MiDaS BEiT-L-384) depth branch
-    (configs/veon/veon-temporal-base-512x1408-zoe-nodepthcache.py): its
-    depth input is midas-normalized at `depth_input_size`, not resized."""
-    cfg = veon_b(num_temporal=num_temporal, compute_dtype=compute_dtype)
-    return dataclasses.replace(cfg, depth_mode="zoedepth",
-                               data=dataclasses.replace(cfg.data, depth_norm_method="midas"))
 
 
 def veon_tiny_test(num_temporal: int = 1) -> VeonConfig:

@@ -34,10 +34,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     and the metrics the manifest lists for the cell. `program_hook` (tests)
     is handed the program's handler before any request."""
     from perfbench import flops, harness
-    from perfbench.reference.configs import presets as ref_presets
+    from perfbench.reference.configs import base as ref_base
 
     nt = cell.traffic.get("num_temporal", 1)
-    cfg = harness.build_config(ref_presets, cell.config, nt)
+    cfg = harness.config_from_file(ref_base, cell.config, nt)
     ctx = {"cell": cell, "seed": seed, "seconds": seconds, "trace": trace, "device": device,
            "t_start": t_start, "program_hook": program_hook,
            "flops_per_item": flops.per_item(cfg, cell.traffic)}

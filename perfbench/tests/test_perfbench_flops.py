@@ -14,8 +14,8 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from perfbench import flops, harness, judge  # noqa: E402
-from perfbench.reference.configs import presets as ref_presets  # noqa: E402
-from test_perfbench_reference import SEED, tiny_cell, tiny_zoe  # noqa: E402,F401
+from perfbench.reference.configs import base as ref_base  # noqa: E402
+from test_perfbench_reference import SEED, miniatures, tiny_cell  # noqa: E402,F401
 
 
 def test_frame_matches_the_roofline_audit():
@@ -29,18 +29,20 @@ def test_frame_matches_the_roofline_audit():
 
 
 def test_the_cells_counts():
-    got = {p: flops.per_request(getattr(ref_presets, p)(), 2) for p in ("veon_b", "veon_b_zoe")}
+    got = {c["name"]: flops.per_request(harness.config_from_file(
+        ref_base, harness.load_json(ROOT / c["file"])), 2) for c in harness.manifest()["configs"]}
     # T=2 adds the temporal fusion's convs at the 100x100x8 pooled grid of
     # 256 channels (~2.85 TFLOP) and the warp
     assert 15.7e12 < got["veon_b"] < 15.95e12
     assert got["veon_b_zoe"] < got["veon_b"]
 
 
-CELLS = [(t, p) for p in ("veon_tiny_test", "veon_tiny_zoe") for t in ("stream_t2", "frame_f1")]
+CELLS = [(t, p) for p in ("veon_tiny_test", "veon_tiny_zoe", "veon_tiny_l")
+         for t in ("stream_t2", "frame_f1")]
 
 
 @pytest.mark.parametrize("traffic,preset", CELLS, ids=[f"{t}-{p}" for t, p in CELLS])
-def test_against_flop_counter(traffic, preset, tiny_zoe):  # noqa: F811
+def test_against_flop_counter(traffic, preset, miniatures):  # noqa: F811
     """`FlopCounterMode` counts only matmuls, convolutions and attention,
     and counts what the reference dispatches: the analytic count adds the
     lift's weighting, the trilinear upsample and the stencil's products,
@@ -50,7 +52,7 @@ def test_against_flop_counter(traffic, preset, tiny_zoe):  # noqa: F811
     cell = tiny_cell(traffic, preset)
     drv = harness.driver(cell.traffic)
     nt = cell.traffic["num_temporal"]
-    cfg = harness.build_config(ref_presets, cell.config, nt)
+    cfg = harness.config_from_file(ref_base, cell.config, nt)
     dev = torch.device("cpu")
     ref = judge.RefServing(cell.config, nt, SEED, dev)
     frames = drv.make_frames(torch, cfg, cell.traffic, SEED, 2, dev)

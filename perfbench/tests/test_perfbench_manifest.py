@@ -97,3 +97,85 @@ def test_configs_hold_their_presets():
         assert body["name"] == conf["name"] and body["reduced"] == conf["reduced"] == []
         cfg = build_config(presets, body)
         assert dataclasses.asdict(cfg)["compute_dtype"] == "bfloat16"
+
+
+def _body(conf):
+    return json.loads((ROOT / conf["file"]).read_text())
+
+
+@pytest.mark.parametrize("num_temporal", [1, 2])
+@pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
+def test_configs_built_from_their_files(conf, num_temporal):
+    """Each side's configuration built from the file alone equals the one
+    the port's preset builds, field for field and hash included; the
+    reference's holds those values in its own classes."""
+    import dataclasses
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    from perfbench.harness import build_config, config_from_file
+    from perfbench.reference.configs import base as ref_base
+    from veon_tpu_torch.configs import base as port_base
+    from veon_tpu_torch.configs import presets
+
+    body = _body(conf)
+    for dtype in (None, "float32"):
+        preset = build_config(presets, body, num_temporal, dtype)
+        port = config_from_file(port_base, body, num_temporal, dtype)
+        assert port == preset and hash(port) == hash(preset)
+        ref = config_from_file(ref_base, body, num_temporal, dtype)
+        assert type(ref) is ref_base.VeonConfig and type(ref.san) is ref_base.SANConfig
+        assert dataclasses.astuple(ref) == dataclasses.astuple(preset)
+        assert hash(ref) == hash(preset)
+
+
+def test_miniature_built_from_its_sizes():
+    """The reference's miniature built from its sizes equals the one its
+    preset builds, in the same classes, hash included."""
+    import dataclasses
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    from perfbench.harness import _as_lists, build_config, config_from_file
+    from perfbench.reference.configs import base as ref_base
+    from perfbench.reference.configs import presets as ref_presets
+
+    sizes = _as_lists(dataclasses.asdict(ref_presets.veon_tiny_test()))
+    sizes.pop("num_temporal")
+    sizes.pop("compute_dtype")
+    conf = {"name": "tiny", "preset": "veon_tiny_test", "compute_dtype": "float32",
+            "sizes": json.loads(json.dumps(sizes))}
+    for num_temporal in (1, 2):
+        got = config_from_file(ref_base, conf, num_temporal)
+        want = build_config(ref_presets, conf, num_temporal)
+        assert got == want and hash(got) == hash(want)
+
+
+REFUSED = [
+    ("unknown", lambda s: s.update(bogus=1), "has unknown keys ['bogus']"),
+    ("unknown_nested", lambda s: s["san"].update(bogus_width=8),
+     "has unknown keys ['san.bogus_width']"),
+    ("missing", lambda s: s.pop("zoe"), "misses keys ['zoe']"),
+    ("missing_nested", lambda s: s["hsa"].pop("fusion_map"), "misses keys ['hsa.fusion_map']"),
+    ("not_a_whole_number", lambda s: s["san"].update(clip_width=768.5),
+     "san.clip_width is not of type int"),
+    ("too_short", lambda s: s["grid"].update(x=[-40.0, 40.0]), "grid.x has 2 entries, not 3"),
+    ("not_a_list", lambda s: s["hsa"].update(fusion_map=[[0, 3, 3], 7]),
+     "hsa.fusion_map[1] is not a list"),
+    ("run_setting", lambda s: s.update(num_temporal=2), "sizes may not hold ['num_temporal']"),
+]
+
+
+@pytest.mark.parametrize("edit,message", [r[1:] for r in REFUSED], ids=[r[0] for r in REFUSED])
+def test_file_refused_by_key(edit, message):
+    import copy
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    from perfbench.harness import config_from_file
+    from perfbench.reference.configs import base as ref_base
+
+    body = copy.deepcopy(_body(BENCH["configs"][0]))
+    edit(body["sizes"])
+    with pytest.raises(ValueError, match=re.escape(message)):
+        config_from_file(ref_base, body, 2)

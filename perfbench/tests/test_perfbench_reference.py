@@ -1,5 +1,6 @@
 """The benchmark's plain reference against the port's CPU path at the
-miniature preset in fp32, on the benchmark's own seeded weights; the
+miniature presets in fp32, on the benchmark's own seeded weights (the
+reference builds each from the cell's sizes, as it does every cell); the
 rest of a run driven on the CPU, with the timed path broken underneath,
 seen to come out not correct; the imports nothing under `perfbench/` may
 make; and, on the card only, the control that has to come out not
@@ -19,8 +20,6 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from perfbench import harness, judge  # noqa: E402
-from perfbench.reference.configs import base as ref_base  # noqa: E402
-from perfbench.reference.configs import presets as ref_presets  # noqa: E402
 from perfbench.run import run_cell  # noqa: E402
 from veon_tpu_torch.configs import base as port_base  # noqa: E402
 from veon_tpu_torch.configs import presets as port_presets  # noqa: E402
@@ -31,28 +30,38 @@ TINY_ZOE = dict(width=32, depth=2, heads=2, patch_size=16, hooks=(0, 1, 1, 1),
                 n_attractors=(4, 2, 2, 1), lora_r=2)
 
 
-def _tiny_zoe(presets, base):
-    def make(num_temporal=1):
-        cfg = presets.veon_tiny_test(num_temporal)
-        return dataclasses.replace(cfg, depth_mode="zoedepth", zoe=base.ZoeConfig(**TINY_ZOE),
-                                   data=dataclasses.replace(cfg.data, depth_norm_method="midas"))
-    return make
+def _tiny_zoe(num_temporal=1):
+    cfg = port_presets.veon_tiny_test(num_temporal)
+    return dataclasses.replace(cfg, depth_mode="zoedepth", zoe=port_base.ZoeConfig(**TINY_ZOE),
+                               data=dataclasses.replace(cfg.data, depth_norm_method="midas"))
+
+
+def _tiny_l(num_temporal=1):
+    """The miniature in VEON-L's shape: CLIP patch 14 on a 32x88 CLIP
+    input it does not divide (2x6 tokens from a 3x3 pretrain grid), HSA
+    blocks that take the CLIP grid of one layer and add another, and a
+    deep-CLIP rerun over the two layers after `feature_last_layer_idx`."""
+    cfg = port_presets.veon_tiny_test(num_temporal)
+    san = dataclasses.replace(cfg.san, clip_patch_size=14, clip_pretrain_grid=(3, 3),
+                              clip_layers=5, feature_last_layer_idx=3)
+    hsa = dataclasses.replace(cfg.hsa, fusion_map=((0, 1, 2), (1, 2, 3)), manip_attn_layers=2)
+    return dataclasses.replace(cfg, san=san, hsa=hsa)
 
 
 @pytest.fixture
-def tiny_zoe(monkeypatch):
-    """The miniature zoe preset on both sides, for the test only."""
-    for presets, base in ((port_presets, port_base), (ref_presets, ref_base)):
-        monkeypatch.setattr(presets, "veon_tiny_zoe", _tiny_zoe(presets, base), raising=False)
+def miniatures(monkeypatch):
+    """The zoe and the VEON-L-shaped miniature as presets of the port, for
+    the test only; the reference builds them from the cell's file."""
+    monkeypatch.setattr(port_presets, "veon_tiny_zoe", _tiny_zoe, raising=False)
+    monkeypatch.setattr(port_presets, "veon_tiny_l", _tiny_l, raising=False)
 
 
 def tiny_cell(traffic: str, preset: str = "veon_tiny_test", dtype: str = "float32",
               config: str = "veon_b"):
-    """A cell of the traffic mix `traffic` at a miniature configuration,
-    with the end-to-end metrics and limits of the manifest's cell of that
-    mix on `config`."""
-    cfg = getattr(ref_presets, preset)()
-    sizes = harness._as_lists(dataclasses.asdict(cfg))
+    """A cell of the traffic mix `traffic` at the port's miniature preset
+    `preset`, with the end-to-end metrics and limits of the manifest's
+    cell of that mix on `config`."""
+    sizes = harness._as_lists(dataclasses.asdict(getattr(port_presets, preset)()))
     sizes.pop("num_temporal")
     sizes.pop("compute_dtype")
     bench = harness.manifest()
@@ -106,8 +115,8 @@ def _program(cell):
     return drv, drv.build_program(torch, cell, SEED, torch.device("cpu"))
 
 
-@pytest.mark.parametrize("preset", ["veon_tiny_test", "veon_tiny_zoe"])
-def test_stream_t2_two_requests(preset, tiny_zoe):
+@pytest.mark.parametrize("preset", ["veon_tiny_test", "veon_tiny_zoe", "veon_tiny_l"])
+def test_stream_t2_two_requests(preset, miniatures):
     cell = tiny_cell("stream_t2", preset)
     drv, (cfg, _model, handler) = _program(cell)
     frames = drv.make_frames(torch, cfg, cell.traffic, SEED, 2, torch.device("cpu"))
@@ -125,8 +134,8 @@ def test_stream_t2_two_requests(preset, tiny_zoe):
     assert max(nums.values()) < 1e-5, nums
 
 
-@pytest.mark.parametrize("preset", ["veon_tiny_test", "veon_tiny_zoe"])
-def test_single_frame_request(preset, tiny_zoe):
+@pytest.mark.parametrize("preset", ["veon_tiny_test", "veon_tiny_zoe", "veon_tiny_l"])
+def test_single_frame_request(preset, miniatures):
     cell = tiny_cell("frame_f1", preset)
     drv, (cfg, _model, handler) = _program(cell)
     frames = drv.make_frames(torch, cfg, cell.traffic, SEED, 2, torch.device("cpu"))
@@ -231,21 +240,30 @@ def _altered_grid_f1(handler):
     server.infer = altered
 
 
-# (config whose cell's limits judge, mix, fault); the fusion left out is
-# a fault of the zoe cell only, whose limits hold the logits after the lift
-RUNS = [("veon_b", "stream_t2", f) for f in (None, _altered_voxels, _flipped_voxels,
-                                             _unrolled_cache, _altered_grid)] + [
-    ("veon_b_zoe", "stream_t2", f) for f in (None, _fusion_skipped)] + [
-    ("veon_b", "frame_f1", f) for f in (None, _flipped_lift, _altered_grid_f1)]
+# (config whose cell's limits judge, mix, fault, miniature); the fusion
+# left out is a fault of the zoe cell only, whose limits hold the logits
+# after the lift; the VEON-L-shaped miniature has no preset in the
+# reference, which builds it from the cell's file alone
+RUNS = [("veon_b", "stream_t2", f, "veon_tiny_test") for f in (
+    None, _altered_voxels, _flipped_voxels, _unrolled_cache, _altered_grid)] + [
+    ("veon_b_zoe", "stream_t2", f, "veon_tiny_test") for f in (None, _fusion_skipped)] + [
+    ("veon_b", "frame_f1", f, "veon_tiny_test") for f in (
+        None, _flipped_lift, _altered_grid_f1)] + [
+    ("veon_b", "stream_t2", f, "veon_tiny_l") for f in (None, _altered_voxels)] + [
+    ("veon_b", "frame_f1", f, "veon_tiny_l") for f in (None, _flipped_lift)]
 
 
-@pytest.mark.parametrize("config,traffic,fault", RUNS,
-                         ids=[f"{c}.{t}-{f.__name__ if f else 'sound'}" for c, t, f in RUNS])
-def test_run_correct(config, traffic, fault):
-    """A whole run at the miniature size on the CPU, judged by the limits
+def _run_id(config, traffic, fault, preset):
+    miniature = "" if preset == "veon_tiny_test" else f"-{preset}"
+    return f"{config}.{traffic}{miniature}-{fault.__name__ if fault else 'sound'}"
+
+
+@pytest.mark.parametrize("config,traffic,fault,preset", RUNS, ids=[_run_id(*r) for r in RUNS])
+def test_run_correct(config, traffic, fault, preset, miniatures):
+    """A whole run at a miniature size on the CPU, judged by the limits
     of the manifest's cell of that configuration and mix: sound, it is
     correct; with a fault planted in the timed path, it is not."""
-    cell = tiny_cell(traffic, config=config)
+    cell = tiny_cell(traffic, preset, config=config)
     assert cell.limits, "the cell has no limits"
     res = run_cell(cell, SEED, 0.5, False, "cpu", time.perf_counter(), program_hook=fault)
     assert res["correct"] is (fault is None), res["numbers"]
