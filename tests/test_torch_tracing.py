@@ -34,6 +34,8 @@ PARENTS = {
     "model.output": "session.infer",
 }
 TEMPORAL_ONLY = {"session.cache", "model.warp", "model.temporal_fusion"}
+# the span that each run of CLIP blocks opens, once under each of these
+CLIP_BLOCKS_PARENTS = ("model.clip", "model.rec_head", "model.rec_rerun")
 
 
 @pytest.fixture(autouse=True)
@@ -80,6 +82,12 @@ def _parents(rec):
             for s in spans]
 
 
+def _expected(temporal):
+    """The sorted (name, parent's name) pairs of a served request."""
+    pairs = [(n, p) for n, p in PARENTS.items() if temporal or n not in TEMPORAL_ONLY]
+    return sorted(pairs + [("clip.blocks", p) for p in CLIP_BLOCKS_PARENTS])
+
+
 def test_off_records_nothing_and_reads_no_clock(f1, monkeypatch):
     """Off, with no profiler recording: `span` gives the shared no-op, and a
     served request builds no span or request, reads no clock and makes no
@@ -111,8 +119,7 @@ def test_f1_request_spans(f1):
     handler(**_request(cfg))
     (rec,) = tracing.requests()
     pairs = _parents(rec)
-    assert {n for n, _ in pairs} == set(PARENTS) - TEMPORAL_ONLY
-    assert all(PARENTS[n] == p for n, p in pairs), pairs
+    assert sorted(pairs) == _expected(False), pairs
     spans = rec["spans"]
     for s in spans:
         assert s["t1_ns"] >= s["t0_ns"] and s["device_ms"] is None
@@ -135,8 +142,7 @@ def test_t2_requests_spans(t2):
     assert len(recs) == 2 and recs[0]["id"] != recs[1]["id"]
     for rec in recs:
         pairs = _parents(rec)
-        assert sorted(n for n, _ in pairs) == sorted(PARENTS)
-        assert all(PARENTS[n] == p for n, p in pairs), pairs
+        assert sorted(pairs) == _expected(True), pairs
 
 
 @pytest.mark.parametrize("mode", ["f1", "t2"])
@@ -170,7 +176,7 @@ def test_request_under_a_profiler_is_traced(t2):
         handler(**_request(cfg, 4))
     handler(**_request(cfg, 5))
     (rec,) = tracing.requests()
-    assert {s["name"] for s in rec["spans"]} == set(PARENTS)
+    assert {s["name"] for s in rec["spans"]} == set(PARENTS) | {"clip.blocks"}
     root = rec["spans"][0]
     (ev,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "serve.request"]
     assert abs(ev.start_ns() - root["t0_ns"]) < 1_000_000

@@ -5,6 +5,10 @@ adapter), and the DINOv2 trunk. Batch-first tokens (B, L, C); images channel-las
 The JAX side runs identical blocks under `nn.scan` with stacked params;
 here a stack is a `ModuleList` of per-layer bodies named as the scan body's
 children, so `ckpt/from_jax.py` unstacks axis 0 into the list index.
+
+Each run of CLIP blocks (the trunk's segments, the rec head's deep layers,
+their rerun) is one `clip.blocks` span of `utils/tracing.py`, which adds
+its token rows times its layers to the counter `clip_token_layers`.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from torch import nn
 
 from ..ops.resize import (adaptive_max_pool2d, resize_bicubic, resize_bicubic_scaled,
                           resize_bilinear)
+from ..utils import tracing
 from .attention import FusedQKVAttention, SimpleAttention
 from .layers import Conv2d, Embed, LayerNorm, TransformerMLP, quick_gelu
 from .rematutil import RematSpec, remat_wrap
@@ -113,9 +118,11 @@ class CLIPVisualExtractor(nn.Module):
             feats[f"{i}_cls"] = t[:, :1]
 
         save(0, x)
-        for a, b in zip(self.saves[:-1], self.saves[1:]):
-            x = getattr(self, f"segment_{a}_{b}")(x)
-            save(b, x)
+        with tracing.span("clip.blocks"):
+            tracing.count("clip_token_layers", B * x.shape[1] * self.saves[-1])
+            for a, b in zip(self.saves[:-1], self.saves[1:]):
+                x = getattr(self, f"segment_{a}_{b}")(x)
+                save(b, x)
         return feats
 
 
@@ -193,18 +200,20 @@ class CLIPRecHead(nn.Module):
         Q = self.sos_token_num
         sos = x[:, :1].expand(B, Q, C)
         bias = format_attn_biases(attn_bias, (h, w), self.heads, self.downsample_method)
-        if self.cross_attn:
-            def layer(blk, sos, x):
-                return blk(sos, attn_mask=bias, mode="cross", mem=x[:, 1:]), blk(x)
+        with tracing.span("clip.blocks"):
+            tracing.count("clip_token_layers", B * (Q + x.shape[1]) * self.num_blocks)
+            if self.cross_attn:
+                def layer(blk, sos, x):
+                    return blk(sos, attn_mask=bias, mode="cross", mem=x[:, 1:]), blk(x)
 
-            for body in self.resblocks:
-                sos, x = remat_wrap(layer, self.remat)(body["block"], sos, x)
-        else:
-            mask = rec_self_attn_mask(bias)
-            x = torch.cat([sos, x], 1)
-            for body in self.resblocks:
-                x = remat_wrap(body["block"], self.remat)(x, attn_mask=mask)
-            sos = x[:, :Q]
+                for body in self.resblocks:
+                    sos, x = remat_wrap(layer, self.remat)(body["block"], sos, x)
+            else:
+                mask = rec_self_attn_mask(bias)
+                x = torch.cat([sos, x], 1)
+                for body in self.resblocks:
+                    x = remat_wrap(body["block"], self.remat)(x, attn_mask=mask)
+                sos = x[:, :Q]
         sos = self.ln_post(sos)
         sos = sos @ self.proj_kernel.to(sos.dtype)
         if normalize:
@@ -219,14 +228,16 @@ class CLIPRecHead(nn.Module):
         also runs a discarded 1-token sos cross-attention; it is skipped.)"""
         x, (B, h, w, C) = self._tokens(feats)
         feats = dict(feats)
-        for i, body in enumerate(self.resblocks):
-            f = None
-            if attn_factors is not None:
-                f = torch.nn.functional.pad(attn_factors[i], (0, 0, 0, 0, 1, 0))
-            x = remat_wrap(body["block"], self.remat)(x, extra_qk=f)
-            idx = self.first_layer_idx + i + 1
-            feats[str(idx)] = x[:, 1:].reshape(B, h, w, C)
-            feats[f"{idx}_cls"] = x[:, :1]
+        with tracing.span("clip.blocks"):
+            tracing.count("clip_token_layers", B * x.shape[1] * self.num_blocks)
+            for i, body in enumerate(self.resblocks):
+                f = None
+                if attn_factors is not None:
+                    f = torch.nn.functional.pad(attn_factors[i], (0, 0, 0, 0, 1, 0))
+                x = remat_wrap(body["block"], self.remat)(x, extra_qk=f)
+                idx = self.first_layer_idx + i + 1
+                feats[str(idx)] = x[:, 1:].reshape(B, h, w, C)
+                feats[f"{idx}_cls"] = x[:, :1]
         last = feats[str(self.total_layers)]
         feats["clip_feat_proj"] = last @ self.proj_kernel.to(last.dtype)
         return feats

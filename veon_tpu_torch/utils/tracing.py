@@ -23,7 +23,8 @@ whatever the device), `d2h_bytes` at its readbacks (`read_back`), and
 `host_syncs`, each call that made the host wait for the card: PyTorch's
 sync debug mode warns at every such call while a traced request computes
 on its thread (`attach`), and each warning is counted where it happens
-and not shown (other warnings are shown once the request is done). A
+and not shown (other warnings are shown once the request is done);
+`clip_token_layers` in each `clip.blocks` span (`nn/vit.py`). A
 request also holds its kernel launches, the deltas of the `.launches`
 counters of `ops/bev_pool.py`, `ops/fused_ln.py` and `ops/deform_stencil.py`.
 
