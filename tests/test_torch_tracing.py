@@ -162,8 +162,10 @@ def test_upload_counters_hold_the_request_bytes(mode, request):
     for key, total in rec["counters"].items():
         assert total == sum(s["counters"].get(key, 0) for s in rec["spans"]), key
     merge = next(s for s in rec["spans"] if s["name"] == "session.merge")
-    membership = (handler.session or handler.server).membership
-    assert merge["counters"]["h2d_copies"] == len(membership)  # one index upload a class
+    # the frame server's merge uploads one index tensor a class on each call;
+    # a session's indices live on the device from its construction
+    want = 0 if handler.session is not None else len(handler.server.membership)
+    assert merge["counters"].get("h2d_copies", 0) == want
 
 
 def test_request_under_a_profiler_is_traced(t2):

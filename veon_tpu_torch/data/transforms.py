@@ -71,21 +71,33 @@ NORMALIZERS = {
 }
 
 
-def normalize_in_graph(img: torch.Tensor, method: str) -> torch.Tensor:
-    """Normalize HWC RGB frames (uint8 or float, any leading dims) on their
-    own device, in fp32: reverse the channels, optionally /255, then
-    (x - mean) / std, bit-equal to the host `NORMALIZERS`. Serving sessions
-    and the eval loop's raw-uint8 mode take raw uint8 frames with it."""
+def normalize_consts(method: str, device) -> Tuple[Optional[torch.Tensor], torch.Tensor,
+                                                   torch.Tensor]:
+    """`normalize_in_graph`'s constants of `method` on `device`: the divisor
+    255 (None where the method takes no /255), the means and the stds."""
     if method not in _NORM_TABLE:
         raise ValueError(f"unknown normalization method {method!r}")
     div255, mean, std = _NORM_TABLE[method]
+    # a divisor on the device: CUDA multiplies by the reciprocal of a Python
+    # scalar, one rounding away from the host's division
+    return (torch.tensor(255.0, device=device) if div255 else None,
+            torch.as_tensor(mean, device=device), torch.as_tensor(std, device=device))
+
+
+def normalize_in_graph(img: torch.Tensor, method: str, consts=None) -> torch.Tensor:
+    """Normalize HWC RGB frames (uint8 or float, any leading dims) on their
+    own device, in fp32: reverse the channels, optionally /255, then
+    (x - mean) / std, bit-equal to the host `NORMALIZERS`. Serving sessions
+    and the eval loop's raw-uint8 mode take raw uint8 frames with it.
+    `consts`, the method's `normalize_consts` on the frames' device, saves
+    their upload on each call."""
+    if consts is None:
+        consts = [t if t is None else tracing.uploaded(t)
+                  for t in normalize_consts(method, img.device)]
+    div, mean, std = consts
     x = img.to(torch.float32).flip(-1)
-    if div255:
-        # a divisor on the device: CUDA multiplies by the reciprocal of a
-        # Python scalar, one rounding away from the host's division
-        x = x / tracing.uploaded(torch.tensor(255.0, device=x.device))
-    mean = tracing.uploaded(torch.as_tensor(mean, device=x.device))
-    std = tracing.uploaded(torch.as_tensor(std, device=x.device))
+    if div is not None:
+        x = x / div
     return (x - mean) / std
 
 

@@ -42,7 +42,9 @@ Socket serving with free-text retrieval (counterpart of `veon_tpu serve`,
     TensorClient("/tmp/veon.sock").infer(imgs=..., depth_imgs=...,
                                          text_tokens=...)  # pred, retrieval
 
-With a cfg of num_temporal > 1 the handler holds a `TemporalSession`.
+With a cfg of num_temporal > 1 the handler holds a `TemporalSession`,
+which on a CUDA device replays its fixed-shape stages as CUDA graphs
+captured in the warm-up (`serve/streaming.py`).
 
 Camera-sharded serving (counterpart of `veon_tpu serve --cam-shards S`):
 every rank of a cam group (`collectives.cam_groups`) calls
@@ -421,6 +423,18 @@ class ServeHandler:
         self.shapes = {k: tuple(req[k].shape) for k in _FRAME_KEYS if k in req}
         return self._run(self._compute, req)
 
+    def capture(self, **req) -> bool:
+        """A streaming session's CUDA graphs, captured on the worker thread
+        on a frame of the warm-up's shapes, after `warm`
+        (`TemporalSession.capture`); whether it captured."""
+        if self.session is None:
+            return False
+        return self._worker.submit(self._capture, req).result()
+
+    @torch.no_grad()
+    def _capture(self, req) -> bool:
+        return self.session.capture(*self._frame(req))
+
     def follow(self) -> None:
         """A cam rank after the first: compute each request the first rank
         broadcasts, until its `close()`."""
@@ -459,6 +473,14 @@ class ServeHandler:
                     raise ValueError(f"{k} shape {tuple(req[k].shape)} is not this server's "
                                      f"{want}")
 
+    def _frame(self, req):
+        """The request's frame on the device: (imgs, depth_imgs), and to a
+        session its metas {"lidarego2global"}."""
+        imgs, depth_imgs = self._tensor(req["imgs"]), self._tensor(req["depth_imgs"])
+        if self.session is None:
+            return imgs, depth_imgs
+        return imgs, depth_imgs, {"lidarego2global": self._tensor(req["lidarego2global"])}
+
     @torch.no_grad()
     def _compute(self, req) -> Dict[str, np.ndarray]:
         if self.session is not None and "reset" in req:
@@ -466,14 +488,12 @@ class ServeHandler:
             return {"ok": np.int32(1)}
         te = self._embed(req)
         with tracing.span("serve.upload"):
-            imgs, depth_imgs = self._tensor(req["imgs"]), self._tensor(req["depth_imgs"])
-            if self.session is not None:
-                metas = {"lidarego2global": self._tensor(req["lidarego2global"])}
+            frame = self._frame(req)
         with tracing.span("serve.compute"):
             if self.session is not None:
-                out = self.session.infer(imgs, depth_imgs, metas, text_embed=te)
+                out = self.session.infer(*frame, text_embed=te)
             else:
-                out = self.server.infer(imgs, depth_imgs, text_embed=te)
+                out = self.server.infer(*frame, text_embed=te)
         with tracing.span("serve.readback"):
             resp = {"pred": tracing.read_back(out["pred"].cpu()).numpy()}
             if te is not None:
@@ -526,9 +546,12 @@ def serve_entry(cfg: Optional[VeonConfig] = None, device="cuda", seed: int = 0,
             handler = ServeHandler(cfg, tower, session=session, raw_uint8=raw_uint8,
                                    cam_group=cam_group)
             imgs, depth_imgs = imgs[:, 0:1], depth_imgs[:, 0:1]
+            frame = dict(imgs=imgs, depth_imgs=depth_imgs,
+                         lidarego2global=metas["lidarego2global"])
             with tracing.setup_span("setup.warm"):
-                handler.warm(imgs=imgs, depth_imgs=depth_imgs,
-                             lidarego2global=metas["lidarego2global"], text_tokens=no_text)
+                handler.warm(**frame, text_tokens=no_text)
+                with tracing.setup_span("setup.capture"):
+                    handler.capture(**frame)
             session.reset()
             required = ()  # reset frames carry no frames; the handler checks the keys
             expect = (f"expected per-frame imgs {tuple(imgs.shape)} {imgs.dtype}, depth_imgs "

@@ -63,7 +63,7 @@ from ..nn.vit import CLIPRecHead, CLIPVisualExtractor
 from ..nn.zoedepth import ZoeDepthNK
 from ..ops.grid_sample import grid_sample_3d
 from ..ops.resize import resize_bilinear, resize_trilinear
-from ..utils import tracing
+from ..utils import graphs, tracing
 
 # the per-camera (B, N, ...) output leaves, gathered over the cam group by
 # camera-sharded serving and before the sharded step's loss; the voxel
@@ -231,24 +231,30 @@ class VeonModel(nn.Module):
         """HSA + deep-CLIP rerun + fuse + LSS lift for one frame.
         flat_imgs (B*N, H, W, 3); depth_f (B, N, H/2, W/2)."""
         c = self.cfg
-        B, N = depth_f.shape[:2]
         with tracing.span("model.hsa"):
             attns, supp = self.hsa(flat_imgs, feats)
         with tracing.span("model.rec_rerun"):
             feats = self.rec_head.update_remaining(feats, attns)
         with tracing.span("model.lift"):
-            lift_hw = (c.data.input_size[0] // c.lss_downsample,
-                       c.data.input_size[1] // c.lss_downsample)
-            fused = self.lift_fusion(supp, feats[str(c.san.clip_layers)], lift_hw)
-            fused = fused.reshape((B, N) + fused.shape[1:])
-            d_ds = min_pool_depth(depth_f, 8)
-            if presorted is not None:
-                vox = self.lift.lift_presorted(fused, two_hot_depth(d_ds, c.grid), presorted)
-            elif c.lss_banded:
-                vox = self.lift.lift_from_metric(fused, d_ds, *lift_args)
-            else:
-                vox = self.lift(fused, two_hot_depth(d_ds, c.grid), *lift_args)
+            vox = graphs.region("lift", self._lift, supp, feats[str(c.san.clip_layers)], depth_f,
+                                lift_args, presorted)
         return vox, feats
+
+    def _lift(self, supp, clip, depth_f, lift_args, presorted):
+        """The lift's input projection of (supp, clip) and the lift of one
+        frame's cameras on its metric depth depth_f (B, N, H/2, W/2)."""
+        c = self.cfg
+        B, N = depth_f.shape[:2]
+        lift_hw = (c.data.input_size[0] // c.lss_downsample,
+                   c.data.input_size[1] // c.lss_downsample)
+        fused = self.lift_fusion(supp, clip, lift_hw)
+        fused = fused.reshape((B, N) + fused.shape[1:])
+        d_ds = min_pool_depth(depth_f, 8)
+        if presorted is not None:
+            return self.lift.lift_presorted(fused, two_hot_depth(d_ds, c.grid), presorted)
+        if c.lss_banded:
+            return self.lift.lift_from_metric(fused, d_ds, *lift_args)
+        return self.lift(fused, two_hot_depth(d_ds, c.grid), *lift_args)
 
     def forward_early(self, imgs, depth, metas):
         """One frame's early pipeline for the streaming cache (CLIP trunk,
@@ -310,6 +316,10 @@ class VeonModel(nn.Module):
         cur2prev = prev^-1 @ cur in elementwise fp32 (no TF32 can reach it),
         trilinear, zeros outside, align_corners=True. Returns fp32, as the
         JAX op's promotion of compute-dtype features at fp32 coordinates."""
+        return graphs.region("warp", self._warp, occ_feat, lidarego2global,
+                             prev_lidarego2global)
+
+    def _warp(self, occ_feat, lidarego2global, prev_lidarego2global):
         g = self.cfg.grid.scaled(self.cfg.lss_feat_ds)
         B, Z, Y, X, _ = occ_feat.shape
         dev, f32 = occ_feat.device, torch.float32

@@ -16,7 +16,7 @@ from torch import nn
 from ..configs.base import PropagationConfig
 from ..ops.deform_stencil import deform_stencil, sample_grid
 from ..ops.grid_sample import grid_sample_3d
-from ..utils import tracing
+from ..utils import graphs, tracing
 from .layers import BatchNorm, CatFusionLift, Conv3d
 from .rematutil import RematSpec, remat_wrap
 from .vit import stack
@@ -148,6 +148,9 @@ class TemporalFusion(nn.Module):
         self.t_final = ConvBN3D(3 * dim, dim, relu=False, dtype=dtype)
 
     def forward(self, cur, prevs: List[torch.Tensor], train: bool = False):
+        return graphs.region("temporal_fusion", self._forward, cur, prevs, train)
+
+    def _forward(self, cur, prevs, train):
         cur = self.before_fusion(cur, train)
         prevs = [self.before_fusion(p, train) for p in prevs]
         prev_feat, idx = prevs[-1], 0
@@ -180,6 +183,10 @@ class AlignNet3D(nn.Module):
         if occ_feat_prevs:
             with tracing.span("model.temporal_fusion"):
                 x = self.temporal_fusion(x, occ_feat_prevs, train)
+        return graphs.region("alignnet.head", self._head, x, train)
+
+    def _head(self, x, train):
+        """The 3D ResBlocks and both heads."""
         for body in self.res3d:
             x = remat_wrap(body["block"], self.remat)(x, train)
         return {"bin_occ": self.occupancy_pred(x, train), "feat_occ": self.feat_pred(x, train)}

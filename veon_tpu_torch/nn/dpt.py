@@ -11,6 +11,7 @@ from torch import nn
 
 from ..configs.base import DepthConfig
 from ..ops.resize import resize_bilinear
+from ..utils import graphs
 from .layers import Conv2d, ConvTranspose2d
 from .vit import DinoV2Trunk
 
@@ -108,6 +109,9 @@ class DepthAnythingV2(nn.Module):
                                   patch_size=vit.patch_size, dtype=dtype)
 
     def forward(self, images):
+        return graphs.region("depth", self._forward, images)
+
+    def _forward(self, images):
         ph, pw = images.shape[1] // self.patch_size, images.shape[2] // self.patch_size
         tokens = [t for t, _cls in self.pretrained(images)]
         return self.depth_head(tokens, (ph, pw))[..., 0] * self.max_depth

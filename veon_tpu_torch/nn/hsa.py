@@ -12,6 +12,7 @@ from torch import nn
 
 from ..configs.base import HSAConfig
 from ..ops.resize import resize_bilinear, resize_nearest
+from ..utils import graphs
 from .layers import Conv2d, ConvFFNBlock, Dense, FeedForward, LayerNorm
 from .rematutil import RematSpec, remat_wrap
 from .vit import stack
@@ -76,6 +77,9 @@ class HighresSideAdaptor(nn.Module):
                                               c.manip_attn_layers, c.manip_supp_dim, dtype)
 
     def forward(self, images, clip_feats: Dict[str, torch.Tensor]):
+        return graphs.region("hsa", self._forward, images, clip_feats)
+
+    def _forward(self, images, clip_feats):
         c = self.cfg
         B, H, W, _ = images.shape
         gh, gw = H // c.patch_shape[0], W // c.patch_shape[1]

@@ -10,6 +10,7 @@ from torch import nn
 
 from ..configs.base import SANConfig
 from ..ops.resize import resize_bicubic
+from ..utils import graphs
 from .layers import MLP, AddFusion, Conv2d
 from .rematutil import RematSpec, remat_wrap
 from .vit import TimmBlock, stack
@@ -77,6 +78,9 @@ class SideAdapterNetwork(nn.Module):
             c.attn_bias_mlp_channels, c.attn_bias_mlp_num_layers, dtype=dtype)
 
     def forward(self, images, clip_feats: Dict[str, torch.Tensor]):
+        return graphs.region("side_adapter", self._forward, images, clip_feats)
+
+    def _forward(self, images, clip_feats):
         c = self.cfg
         B, H, W, _ = images.shape
         p = c.side_patch_size

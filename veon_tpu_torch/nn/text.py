@@ -255,13 +255,21 @@ def merge_matrix(class_reflection: Sequence[int], extra_rows: int = 1) -> np.nda
     return m
 
 
-def merge_classes_max(x: torch.Tensor, membership, axis: int) -> torch.Tensor:
-    """Group-max along `axis`: out[..., g, ...] = max over the prompts of group g."""
+def merge_groups(membership, device) -> List[torch.Tensor]:
+    """Each group's prompt indices (int64) on `device`, in the membership
+    matrix's row order: what `merge_classes_max` gathers."""
+    return [torch.as_tensor(np.flatnonzero(row), device=device) for row in np.asarray(membership)]
+
+
+def merge_classes_max(x: torch.Tensor, membership, axis: int, groups=None) -> torch.Tensor:
+    """Group-max along `axis`: out[..., g, ...] = max over the prompts of group g.
+    `groups`, the membership's `merge_groups` on x's device, saves their
+    upload on each call."""
     x = x.movedim(axis, -1)
     # one gather + max per group: the masked (..., G, P) broadcast would
     # materialize G x the input (3 GB at the flagship's 640k voxels)
-    groups = [tracing.uploaded(torch.as_tensor(np.flatnonzero(row), device=x.device))
-              for row in np.asarray(membership)]
+    if groups is None:
+        groups = [tracing.uploaded(g) for g in merge_groups(membership, x.device)]
     out = torch.stack([x.index_select(-1, g).amax(-1) for g in groups], -1)
     return out.movedim(-1, axis)
 

@@ -8,7 +8,9 @@ children, so `ckpt/from_jax.py` unstacks axis 0 into the list index.
 
 Each run of CLIP blocks (the trunk's segments, the rec head's deep layers,
 their rerun) is one `clip.blocks` span of `utils/tracing.py`, which adds
-its token rows times its layers to the counter `clip_token_layers`.
+its token rows times its layers to the counter `clip_token_layers`. The
+work before, inside and after each such span is a region of
+`utils/graphs.py`, which a streaming session replays as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from torch import nn
 
 from ..ops.resize import (adaptive_max_pool2d, resize_bicubic, resize_bicubic_scaled,
                           resize_bilinear)
-from ..utils import tracing
+from ..utils import graphs, tracing
 from .attention import FusedQKVAttention, SimpleAttention
 from .layers import Conv2d, Embed, LayerNorm, TransformerMLP, quick_gelu
 from .rematutil import RematSpec, remat_wrap
@@ -105,6 +107,20 @@ class CLIPVisualExtractor(nn.Module):
                 b - a, lambda: CLIPBlock(width, heads, dtype=dtype), remat))
 
     def forward(self, images) -> Dict[str, torch.Tensor]:
+        x, feats = graphs.region("clip.embed", self._embed, images)
+        with tracing.span("clip.blocks"):
+            tracing.count("clip_token_layers", x.shape[0] * x.shape[1] * self.saves[-1])
+            return graphs.region("clip.blocks", self._blocks, x, feats)
+
+    def _save(self, feats, i: int, t, grid) -> None:
+        """Layer i's tokens t (B, 1 + h*w, C) into feats: its map on grid
+        (B, h, w) and its cls row."""
+        feats[str(i)] = t[:, 1:].reshape(*grid, self.width)
+        feats[f"{i}_cls"] = t[:, :1]
+
+    def _embed(self, images):
+        """The patch embedding, cls and position rows and ln_pre: (tokens,
+        {"0", "0_cls"})."""
         B, H, W, _ = images.shape
         h, w = H // self.patch_size, W // self.patch_size
         x = self.conv1(images).reshape(B, h * w, self.width)
@@ -112,17 +128,16 @@ class CLIPVisualExtractor(nn.Module):
         pos = resize_pos_embed_2d(self.positional_embedding, self.pretrain_grid, (h, w))
         x = self.ln_pre(torch.cat([cls, x], 1) + pos.to(x.dtype)[None])
         feats = {}
+        self._save(feats, 0, x, (B, h, w))
+        return x, feats
 
-        def save(i, t):
-            feats[str(i)] = t[:, 1:].reshape(B, h, w, self.width)
-            feats[f"{i}_cls"] = t[:, :1]
-
-        save(0, x)
-        with tracing.span("clip.blocks"):
-            tracing.count("clip_token_layers", B * x.shape[1] * self.saves[-1])
-            for a, b in zip(self.saves[:-1], self.saves[1:]):
-                x = getattr(self, f"segment_{a}_{b}")(x)
-                save(b, x)
+    def _blocks(self, x, feats):
+        """The transformer blocks from layer 0's tokens x, each saved layer's
+        map and cls added to a copy of feats."""
+        feats, grid = dict(feats), feats["0"].shape[:3]
+        for a, b in zip(self.saves[:-1], self.saves[1:]):
+            x = getattr(self, f"segment_{a}_{b}")(x)
+            self._save(feats, b, x, grid)
         return feats
 
 
@@ -196,24 +211,35 @@ class CLIPRecHead(nn.Module):
         return torch.cat([feats[f"{k}_cls"], pix.reshape(B, h * w, C)], 1), (B, h, w, C)
 
     def forward(self, feats: Dict[str, torch.Tensor], attn_bias, normalize: bool = True):
-        x, (B, h, w, C) = self._tokens(feats)
-        Q = self.sos_token_num
-        sos = x[:, :1].expand(B, Q, C)
-        bias = format_attn_biases(attn_bias, (h, w), self.heads, self.downsample_method)
+        x, sos, bias = graphs.region("rec_head.tokens", self._head_tokens, feats, attn_bias)
         with tracing.span("clip.blocks"):
-            tracing.count("clip_token_layers", B * (Q + x.shape[1]) * self.num_blocks)
-            if self.cross_attn:
-                def layer(blk, sos, x):
-                    return blk(sos, attn_mask=bias, mode="cross", mem=x[:, 1:]), blk(x)
+            tracing.count("clip_token_layers",
+                          x.shape[0] * (self.sos_token_num + x.shape[1]) * self.num_blocks)
+            sos = graphs.region("rec_head.blocks", self._head_blocks, x, sos, bias)
+        return graphs.region("rec_head.out", self._head_out, sos, normalize)
 
-                for body in self.resblocks:
-                    sos, x = remat_wrap(layer, self.remat)(body["block"], sos, x)
-            else:
-                mask = rec_self_attn_mask(bias)
-                x = torch.cat([sos, x], 1)
-                for body in self.resblocks:
-                    x = remat_wrap(body["block"], self.remat)(x, attn_mask=mask)
-                sos = x[:, :Q]
+    def _head_tokens(self, feats, attn_bias):
+        """The deep trunk's tokens, the sos rows and the formatted bias."""
+        x, (B, h, w, C) = self._tokens(feats)
+        sos = x[:, :1].expand(B, self.sos_token_num, C)
+        return x, sos, format_attn_biases(attn_bias, (h, w), self.heads, self.downsample_method)
+
+    def _head_blocks(self, x, sos, bias):
+        """The deep layers over the sos rows: their output sos rows."""
+        if self.cross_attn:
+            def layer(blk, sos, x):
+                return blk(sos, attn_mask=bias, mode="cross", mem=x[:, 1:]), blk(x)
+
+            for body in self.resblocks:
+                sos, x = remat_wrap(layer, self.remat)(body["block"], sos, x)
+            return sos
+        mask = rec_self_attn_mask(bias)
+        x = torch.cat([sos, x], 1)
+        for body in self.resblocks:
+            x = remat_wrap(body["block"], self.remat)(x, attn_mask=mask)
+        return x[:, :self.sos_token_num]
+
+    def _head_out(self, sos, normalize: bool):
         sos = self.ln_post(sos)
         sos = sos @ self.proj_kernel.to(sos.dtype)
         if normalize:
@@ -227,19 +253,26 @@ class CLIPRecHead(nn.Module):
         f @ f^T per layer and head, zero on the cls row/column. (The JAX scan
         also runs a discarded 1-token sos cross-attention; it is skipped.)"""
         x, (B, h, w, C) = self._tokens(feats)
-        feats = dict(feats)
         with tracing.span("clip.blocks"):
             tracing.count("clip_token_layers", B * x.shape[1] * self.num_blocks)
-            for i, body in enumerate(self.resblocks):
-                f = None
-                if attn_factors is not None:
-                    f = torch.nn.functional.pad(attn_factors[i], (0, 0, 0, 0, 1, 0))
-                x = remat_wrap(body["block"], self.remat)(x, extra_qk=f)
-                idx = self.first_layer_idx + i + 1
-                feats[str(idx)] = x[:, 1:].reshape(B, h, w, C)
-                feats[f"{idx}_cls"] = x[:, :1]
+            feats = graphs.region("rec_rerun.blocks", self._rerun_blocks, x, feats, attn_factors)
         last = feats[str(self.total_layers)]
         feats["clip_feat_proj"] = last @ self.proj_kernel.to(last.dtype)
+        return feats
+
+    def _rerun_blocks(self, x, feats, attn_factors):
+        """The deep layers from tokens x, each layer's map and cls added to a
+        copy of feats."""
+        B, h, w, C = feats[str(self.first_layer_idx)].shape
+        feats = dict(feats)
+        for i, body in enumerate(self.resblocks):
+            f = None
+            if attn_factors is not None:
+                f = torch.nn.functional.pad(attn_factors[i], (0, 0, 0, 0, 1, 0))
+            x = remat_wrap(body["block"], self.remat)(x, extra_qk=f)
+            idx = self.first_layer_idx + i + 1
+            feats[str(idx)] = x[:, 1:].reshape(B, h, w, C)
+            feats[f"{idx}_cls"] = x[:, :1]
         return feats
 
 

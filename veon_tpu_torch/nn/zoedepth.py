@@ -28,6 +28,7 @@ from torch import nn
 
 from ..configs.base import ZoeConfig
 from ..ops.resize import resize_bilinear
+from ..utils import graphs
 from .attention import _merge_heads, _split_heads
 from .dpt import FeatureFusionBlock
 from .layers import Conv2d, ConvTranspose2d, Dense, LayerNorm, LoRADense, gelu_exact
@@ -291,6 +292,9 @@ class ZoeDepthNK(nn.Module):
             log_binomial(c.n_bins), device=self.conv2.weight.device), persistent=False)
 
     def forward(self, images):
+        return graphs.region("depth", self._forward, images)
+
+    def _forward(self, images):
         c = self.cfg
         _rel, feats = self.core(images)
         out32, btlnck, *x_blocks = feats

@@ -15,10 +15,24 @@ which holds voxels after that sum, is the same on every rank. The rig
 metas carry the stacked per-shard presort and the whole rig's keyego
 anchor (`prepare_camshard_metas(presort=True)`); a frame's metas without
 the anchor get it pinned before they are cut.
+
+CUDA graphs (`utils/graphs.py`): once warm, a session on a CUDA device
+captures the step's fixed-shape stages, the regions the model's code
+names, into CUDA graphs (`capture`, which `entry.serve_entry` calls in
+its warm-up), and replays them on every request in place of the Python
+that issues their ops. Between the regions run the spans and hooked
+calls, and short glue: the normalize, the depth and CLIP input resizes,
+the model's output, the merge and fusion rule, the cache roll. The step
+takes the normalize's and the merge's constants from the card, so
+nothing is copied from the host inside a region. A session under a cam
+group, or while compiling, runs every region eagerly, as it does before
+a capture; a region whose inputs differ in shape from its capture's runs
+eagerly too.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -26,11 +40,11 @@ from torch import nn
 
 from .. import torch_dtype
 from ..collectives import CamGroup
-from ..data.transforms import normalize_in_graph
+from ..data.transforms import normalize_consts, normalize_in_graph
 from ..model.veon import VeonModel, fusion_rule, retrieval_map
 from ..nn import text as text_mod
 from ..model.camshard import gather_outputs, local_inputs, prepare_camshard_metas
-from ..utils import tracing
+from ..utils import graphs, tracing
 
 
 class StreamingStep(nn.Module):
@@ -45,26 +59,41 @@ class StreamingStep(nn.Module):
     it; `TemporalSession` keeps the cache around it.
     `normalize=(img_method, depth_method)` takes raw uint8 HWC frames and
     normalizes them in the graph; `estimate_depth=False` takes metric depth
-    in place of depth-tower images."""
+    in place of depth-tower images. After `prepare(device)` the normalize
+    and the merge take their constants from the device, except while
+    compiling, so an export holds the same graph either way."""
 
     def __init__(self, model: VeonModel, membership=None, estimate_depth: bool = True,
                  normalize=None):
         super().__init__()
         self.model, self.membership = model, membership
         self.estimate_depth, self.normalize = estimate_depth, normalize
+        self._norm, self._groups = (None, None), None
+
+    def prepare(self, device) -> None:
+        """Put the normalize's divisor, means and stds and the merge's group
+        indices on `device` once."""
+        if self.normalize is not None:
+            self._norm = tuple(normalize_consts(m, device) for m in self.normalize)
+        if self.membership is not None:
+            self._groups = text_mod.merge_groups(self.membership, device)
 
     def forward(self, imgs, depth_imgs, metas, ov_weight, prev_vox, prev_l2g, text_embed):
+        norm, groups = self._norm, self._groups
+        if torch.compiler.is_compiling():
+            norm, groups = (None, None), None
         if self.normalize is not None:
             with tracing.span("session.normalize"):
-                imgs = normalize_in_graph(imgs, self.normalize[0])
+                imgs = normalize_in_graph(imgs, self.normalize[0], norm[0])
                 if self.estimate_depth:
-                    depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1])
+                    depth_imgs = normalize_in_graph(depth_imgs, self.normalize[1], norm[1])
         run = (self.model.full_forward_streaming if self.estimate_depth
                else self.model.forward_streaming)
         out = run(imgs, depth_imgs, metas, ov_weight, prev_vox, prev_l2g)
         if self.membership is not None:
             with tracing.span("session.merge"):
-                merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1)
+                merged = text_mod.merge_classes_max(out["sem_occ_raw"], self.membership, axis=-1,
+                                                    groups=groups)
                 out["pred"] = fusion_rule(merged, out["bin_occ"]).to(torch.uint8)
         out["retrieval"] = retrieval_map(out["feat_occ"], text_embed)
         return out
@@ -100,6 +129,9 @@ class TemporalSession:
         self.rig_metas = dict(rig_metas or {})
         self.step = StreamingStep(model, membership, estimate_depth, normalize)
         dev = ov_weight.device
+        self.step.prepare(dev)
+        self.graphs = graphs.StepGraphs()
+        self._capturing = False
         nx, ny, nz = cfg.grid.size
         dz, dy, dx = cfg.lss_feat_ds
         T = cfg.num_temporal - 1
@@ -131,16 +163,50 @@ class TemporalSession:
                     if keep is not None:
                         m["lift_sorted"] = keep
                 imgs, depth_imgs, m = local_inputs(imgs, depth_imgs, m, cg)
-            out = self.step(imgs, depth_imgs, m, self.ov_weight, self._vox, self._l2g, te)
+            with self.graphs.step(self._graph_mode()):
+                out = self.step(imgs, depth_imgs, m, self.ov_weight, self._vox, self._l2g, te)
+            early = out.pop("early_vox")
+            out = self.graphs.unshared(out)
             if cg is not None:
                 out = gather_outputs(out, cg)
             with tracing.span("session.cache"):
-                early = out.pop("early_vox")
                 l2g = m["lidarego2global"].to(torch.float32)
                 self._vox = torch.cat([early[:, None].to(self._vox.dtype), self._vox[:, :-1]], 1)
                 self._l2g = torch.cat([l2g[:, None], self._l2g[:, :-1]], 1)
             self.calls += 1
             return out
+
+    def _graph_mode(self) -> str:
+        if self._capturing:
+            return "capture"
+        if self.graphs.regions and self.cam_group is None and not torch.compiler.is_compiling():
+            return "replay"
+        return "eager"
+
+    def capture(self, imgs, depth_imgs, metas, text_embed=None) -> bool:
+        """Serve one frame as `infer` does (the cache rolls) while capturing
+        each region of the step into a CUDA graph, which every later call
+        replays where its inputs fit (a capture before replaces its graphs).
+        Call it warm: after an eager call on the same thread, which builds
+        the kernels, cuDNN's plans and cuBLAS's handles that a capture may
+        not. Returns whether it captured; off CUDA, under a cam group or
+        while compiling it computes nothing and returns False, and a
+        capture that fails leaves the session eager with a warning."""
+        dev = self.ov_weight.device
+        if dev.type != "cuda" or self.cam_group is not None or torch.compiler.is_compiling():
+            return False
+        self.graphs = graphs.StepGraphs()
+        self.graphs.stable(self.ov_weight, self._zero_embed, self.rig_metas)
+        self._capturing = True
+        try:
+            self.infer(imgs, depth_imgs, metas, text_embed)
+        except RuntimeError as e:
+            self.graphs = graphs.StepGraphs()
+            warnings.warn(f"TemporalSession: CUDA graph capture failed, serving eagerly: {e}")
+            return False
+        finally:
+            self._capturing = False
+        return True
 
     def reset(self) -> None:
         """Zero the cache (a scene cut or a new sequence)."""

@@ -24,9 +24,13 @@ whatever the device), `d2h_bytes` at its readbacks (`read_back`), and
 sync debug mode warns at every such call while a traced request computes
 on its thread (`attach`), and each warning is counted where it happens
 and not shown (other warnings are shown once the request is done);
-`clip_token_layers` in each `clip.blocks` span (`nn/vit.py`). A
-request also holds its kernel launches, the deltas of the `.launches`
-counters of `ops/bev_pool.py`, `ops/fused_ln.py` and `ops/deform_stencil.py`.
+`clip_token_layers` in each `clip.blocks` span (`nn/vit.py`);
+`graph_replays` and `graph_eager` where a streaming session's regions
+replay or run eagerly (`utils/graphs.py`). A request also holds its
+kernel launches, the deltas of the `.launches` counters of
+`ops/bev_pool.py`, `ops/fused_ln.py` and `ops/deform_stencil.py`
+(`launch_counters`), to which each replayed region adds the launches its
+capture counted.
 
 Tracing is on after `enable()`, and for each request that reaches
 `ServeHandler` while a `torch.profiler` records, on any thread and in
@@ -35,8 +39,9 @@ either mode (`request`). A request's spans may lie on two threads:
 hangs the worker's spans under it. A span opened outside any request (a
 session called directly) starts a request of its own. Nothing is
 recorded while `torch.compiler.is_compiling()`, so exported programs hold
-no span. Set-up spans (`setup_span`) are recorded in every process, host
-clock only.
+no span, nor while a CUDA graph captures (`utils/graphs.py`), so a
+captured region holds none. Set-up spans (`setup_span`) are recorded in
+every process, host clock only.
 
 The last `RING` requests and set-up spans stay in memory (`requests()`,
 `setup()`); the tracer writes no file (`utils/profiling.py` `trace`
@@ -112,12 +117,23 @@ def _stack() -> List:
     return st
 
 
-def _launch_counts() -> Dict[str, int]:
+def launch_counters():
+    """The ops whose `.launches` count their kernels' launches."""
     from ..ops import bev_pool, deform_stencil, fused_ln
 
-    return {f.__name__: f.launches for f in (bev_pool.bev_pool_pooled, bev_pool.bev_pool_sorted,
-                                             bev_pool.bev_pool_sorted2, fused_ln.ln_dense,
-                                             deform_stencil.deform_stencil)}
+    return (bev_pool.bev_pool_pooled, bev_pool.bev_pool_sorted, bev_pool.bev_pool_sorted2,
+            fused_ln.ln_dense, deform_stencil.deform_stencil)
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {f.__name__: f.launches for f in launch_counters()}
+
+
+def _muted() -> bool:
+    """Nothing is recorded while a graph is traced for export or compiled,
+    or while a CUDA graph captures on this thread's stream."""
+    return torch.compiler.is_compiling() or (torch.cuda.is_initialized()
+                                             and torch.cuda.is_current_stream_capturing())
 
 
 class _Request:
@@ -206,14 +222,14 @@ class _Span:
 def span(name: str):
     """A context manager that records the body as the span `name` when
     tracing is on, and does nothing otherwise."""
-    if not _on or torch.compiler.is_compiling():
+    if not _on or _muted():
         return _NOOP
     return _Span(name)
 
 
 def count(name: str, n: int = 1) -> None:
     """Add n to counter `name` of the innermost open span and its request."""
-    if not _on or torch.compiler.is_compiling():
+    if not _on or _muted():
         return
     stack = _stack()
     if stack:
@@ -223,7 +239,7 @@ def count(name: str, n: int = 1) -> None:
 def uploaded(t: torch.Tensor) -> torch.Tensor:
     """Count t, just copied from the host to the serving device, as one
     upload of its bytes; returns t."""
-    if _on and not torch.compiler.is_compiling():
+    if _on and not _muted():
         count("h2d_bytes", t.nbytes)
         count("h2d_copies", 1)
     return t
@@ -232,7 +248,7 @@ def uploaded(t: torch.Tensor) -> torch.Tensor:
 def read_back(t: torch.Tensor) -> torch.Tensor:
     """Count t, just copied from the device to the host, as read back;
     returns t."""
-    if _on and not torch.compiler.is_compiling():
+    if _on and not _muted():
         count("d2h_bytes", t.nbytes)
     return t
 
